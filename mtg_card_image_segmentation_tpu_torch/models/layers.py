@@ -1,0 +1,173 @@
+"""Shared NHWC building blocks (counterpart of the JAX package's
+``models/layers.py``).
+
+Public functions and modules take and return NHWC tensors, as the JAX
+package does. Inside, an NHWC tensor viewed through ``.permute(0, 3, 1, 2)``
+is a channels_last NCHW tensor, which ``F.conv2d`` takes without a copy.
+
+Numerics follow the reference:
+- convs run in the module's compute ``dtype`` (float32 accumulation); the
+  folded bias and the activation follow in ``dtype``, BatchNorm (unfolded)
+  and the activation after it in float32, and the result is cast to
+  ``dtype``;
+- explicit symmetric ``(k-1)//2 * dilation`` padding (torch convention);
+- BatchNorm eps 1e-3, torch momentum 0.01 (Flax 0.99).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.01  # torch convention; Flax's 0.99
+
+
+def make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None) -> int:
+    """Channel rounding rule used throughout the MobileNet family."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """relu6(x+3)/6 — torch nn.Hardsigmoid."""
+    return torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    """x * relu6(x+3)/6 — torch nn.Hardswish."""
+    return x * hard_sigmoid(x)
+
+
+# hardswish as torch's one fused op: x * min(max(x + 3, 0), 6) / 6, the
+# arithmetic of the TPU kernel's _act and of the CUDA kernels
+ACTIVATIONS = {"relu": torch.relu, "hardswish": F.hardswish}
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NCHW view (channels_last memory when ``x`` is contiguous)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NHWC view."""
+    return x.permute(0, 2, 3, 1)
+
+
+class ConvBNAct(nn.Module):
+    """Conv -> BatchNorm -> activation (the ``cbr`` unit). ``fold_bn=True``
+    is the inference layout: no BN, the conv carries the folded bias."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 act: Optional[str] = "relu", use_bn: bool = True,
+                 fold_bn: bool = False,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.padding = (kernel - 1) // 2 * dilation
+        self.act = act
+        self.dtype = dtype
+        self.conv = nn.Conv2d(
+            in_features, features, kernel, stride=stride,
+            padding=self.padding, dilation=dilation, groups=groups,
+            bias=fold_bn and use_bn,
+        )
+        self.bn = (
+            nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+            if use_bn and not fold_bn else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # The conv rounds its fp32 sum to ``dtype``, then the bias is added
+        # in ``dtype`` (one more rounding), as a Flax conv with a bias does.
+        # A bias fused into the conv is rounded at a backend-chosen point
+        # (cuDNN: after the conv's own rounding; oneDNN: once), so it is
+        # kept out, and the card and the CPU agree up to the order of the
+        # conv's sum.
+        y = F.conv2d(nchw(x.to(self.dtype)), self.conv.weight.to(self.dtype), None,
+                     self.stride, self.padding, self.dilation, self.groups)
+        if self.bn is not None:
+            y = self.bn(y.float())
+        elif self.conv.bias is not None:
+            y = y + self.conv.bias.to(y.dtype)[:, None, None]
+        if self.act is not None:
+            y = ACTIVATIONS[self.act](y)
+        return nhwc(y.to(self.dtype))
+
+
+class SqueezeExcite(nn.Module):
+    """global pool (fp32) -> 1x1 reduce (ReLU) -> 1x1 expand (hardsigmoid)
+    -> channel gate. The pooled vector is cast to ``dtype`` before fc1."""
+
+    def __init__(self, channels: int, squeeze_features: int,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Conv2d(channels, squeeze_features, 1, bias=True)
+        self.fc2 = nn.Conv2d(squeeze_features, channels, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(1, 2), dtype=torch.float32).to(self.dtype)  # (B, C)
+        s = F.linear(s, self.fc1.weight.to(self.dtype).flatten(1),
+                     self.fc1.bias.to(self.dtype))
+        s = torch.relu(s)
+        s = F.linear(s, self.fc2.weight.to(self.dtype).flatten(1),
+                     self.fc2.bias.to(self.dtype))
+        gate = hard_sigmoid(s.float()).to(x.dtype)
+        return x * gate[:, None, None, :]
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV3 bottleneck: [1x1 expand] -> kxk depthwise -> [SE] -> 1x1
+    project, residual (added in float32) when stride == 1 and in == out."""
+
+    def __init__(self, in_features: int, expanded: int, out_features: int,
+                 kernel: int, stride: int, dilation: int = 1,
+                 use_se: bool = False, act: str = "relu", fold_bn: bool = False,
+                 se_features: Optional[int] = None,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        # dilation replaces striding in the dilated (LR-ASPP) tail
+        self.stride = 1 if dilation > 1 else stride
+        self.dilation, self.kernel, self.act = dilation, kernel, act
+        self.in_features, self.expanded = in_features, expanded
+        self.out_features = out_features
+        self.dtype = dtype
+        self.expand = (
+            ConvBNAct(in_features, expanded, 1, act=act, fold_bn=fold_bn, dtype=dtype)
+            if expanded != in_features else None
+        )
+        self.depthwise = ConvBNAct(
+            expanded, expanded, kernel, stride=self.stride, dilation=dilation,
+            groups=expanded, act=act, fold_bn=fold_bn, dtype=dtype,
+        )
+        self.se = (
+            SqueezeExcite(expanded, se_features or make_divisible(expanded // 4, 8),
+                          dtype=dtype)
+            if use_se else None
+        )
+        self.project = ConvBNAct(expanded, out_features, 1, act=None,
+                                 fold_bn=fold_bn, dtype=dtype)
+
+    @property
+    def residual(self) -> bool:
+        return self.stride == 1 and self.in_features == self.out_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x if self.expand is None else self.expand(x)
+        y = self.depthwise(y)
+        if self.se is not None:
+            y = self.se(y)
+        y = self.project(y)
+        if self.residual:
+            # one op: the sum is taken in float32 and rounded once
+            y = (y + x).to(self.dtype)
+        return y

@@ -1,0 +1,47 @@
+"""Model factory (counterpart of the JAX package's ``models/registry.py``).
+The port registers the segmentation model only."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+_REGISTRY: Dict[str, Callable[..., Any]] = {}
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def available_models():
+    return sorted(_REGISTRY)
+
+
+def create_model(name: str, **kwargs):
+    if name not in _REGISTRY:
+        raise KeyError(f"Unknown model {name!r}; available: {available_models()}")
+    return _REGISTRY[name](**kwargs)
+
+
+@register("lraspp_mobilenet_v3_large")
+def _lraspp(num_classes: int = 2, inter_channels: int = 128,
+            compute_dtype: str = "bfloat16", fold_bn: bool = False,
+            expanded_overrides=None):
+    from mtg_card_image_segmentation_tpu_torch.models.lraspp import (
+        CardSegmentationModel,
+    )
+
+    return CardSegmentationModel(
+        num_classes=num_classes,
+        inter_channels=inter_channels,
+        fold_bn=fold_bn,
+        expanded_overrides=expanded_overrides,
+        dtype=_DTYPES[compute_dtype],
+    )

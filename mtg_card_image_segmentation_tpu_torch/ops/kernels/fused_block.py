@@ -1,0 +1,323 @@
+"""Fused MobileNetV3 inverted-residual block and the dilated tail chain
+(counterpart of the JAX package's ``ops/pallas/fused_block.py``).
+
+One folded block: [1x1 expand] -> k x k depthwise (any dilation, stride 1
+or 2 = the even rows/cols of the full stencil) -> [SE] -> 1x1 project
+[+ residual]. On the card it runs as four CUDA kernels (``csrc/
+fused_block.cu``): expand GEMM, depthwise with the SE sums, SE gate,
+project GEMM with the gate applied as A loads. ``fused_tail_chain`` runs
+blocks 12-14 through the same kernels and keeps the values between blocks
+in float32, as the TPU chain does in VMEM.
+
+The plain versions (``*_plain``) repeat the TPU kernel's precision: bf16
+inputs to the products with fp32 accumulation, each depthwise term rounded
+to bf16 and summed in fp32 (columns outer, rows inner), SE in fp32 with its
+gate rounded to bf16. The wrappers take them only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Any, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GEMM_ARGS = [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+_DW_ARGS = [_P] * 5 + [_I] * 11 + [_P]
+_SE_ARGS = [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P]
+_SMEM_ARGS = [_I] * 5
+_ACT = {None: 0, "relu": 1, "hardswish": 2}
+_DW_SMEM_BUDGET = 64 * 1024  # bytes of shared memory per depthwise CTA
+BF16 = torch.bfloat16
+
+# launch-counter names of the four kernels one block launches
+BLOCK_KERNELS = ("expand_gemm", "depthwise", "se_gate", "project_gemm")
+
+
+@dataclass(frozen=True)
+class BlockWeights:
+    """One folded block's weights in the kernels' layouts. GEMM weights are
+    (out, in) bf16, depthwise taps (k*k, C) bf16, SE weights (in, out)
+    fp32, biases fp32."""
+
+    kernel_size: int
+    dw_w: torch.Tensor
+    dw_b: torch.Tensor
+    proj_w: torch.Tensor
+    proj_b: torch.Tensor
+    exp_w: Optional[torch.Tensor] = None
+    exp_b: Optional[torch.Tensor] = None
+    se1_w: Optional[torch.Tensor] = None
+    se1_b: Optional[torch.Tensor] = None
+    se2_w: Optional[torch.Tensor] = None
+    se2_b: Optional[torch.Tensor] = None
+
+    @property
+    def cexp(self) -> int:
+        return self.dw_w.shape[1]
+
+    @property
+    def cin(self) -> int:
+        return self.cexp if self.exp_w is None else self.exp_w.shape[1]
+
+    @property
+    def cout(self) -> int:
+        return self.proj_w.shape[0]
+
+    @classmethod
+    def from_flax(cls, params: Mapping[str, Any], kernel_size: int,
+                  device: Union[str, torch.device] = "cpu") -> "BlockWeights":
+        """From a folded Flax block subtree ({"expand"?, "depthwise",
+        "se"?, "project"}, HWIO kernels; numpy or torch leaves)."""
+
+        def t(a, dtype):
+            a = a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a, np.float32))
+            return a.detach().to(device=device).float().to(dtype).contiguous()
+
+        def mat(kernel, dtype):  # HWIO 1x1 -> (in, out)
+            return t(kernel, torch.float32).reshape(-1, kernel.shape[-1]).to(dtype)
+
+        cexp = params["depthwise"]["conv"]["kernel"].shape[-1]
+        kw = {}
+        if "expand" in params:
+            kw["exp_w"] = mat(params["expand"]["conv"]["kernel"], BF16).t().contiguous()
+            kw["exp_b"] = t(params["expand"]["conv"]["bias"], torch.float32)
+        if "se" in params:
+            kw["se1_w"] = mat(params["se"]["fc1"]["kernel"], torch.float32)
+            kw["se1_b"] = t(params["se"]["fc1"]["bias"], torch.float32)
+            kw["se2_w"] = mat(params["se"]["fc2"]["kernel"], torch.float32)
+            kw["se2_b"] = t(params["se"]["fc2"]["bias"], torch.float32)
+        dw = t(params["depthwise"]["conv"]["kernel"], torch.float32)
+        return cls(
+            kernel_size=kernel_size,
+            dw_w=dw.reshape(kernel_size * kernel_size, cexp).to(BF16),
+            dw_b=t(params["depthwise"]["conv"]["bias"], torch.float32),
+            proj_w=mat(params["project"]["conv"]["kernel"], BF16).t().contiguous(),
+            proj_b=t(params["project"]["conv"]["bias"], torch.float32),
+            **kw,
+        )
+
+    @classmethod
+    def from_module(cls, block) -> "BlockWeights":
+        """From the port's folded ``InvertedResidual`` module."""
+
+        def conv(m):
+            return {"kernel": m.conv.weight.permute(2, 3, 1, 0), "bias": m.conv.bias}
+
+        def lin(m):
+            return {"kernel": m.weight.permute(2, 3, 1, 0), "bias": m.bias}
+
+        tree = {"depthwise": {"conv": conv(block.depthwise)},
+                "project": {"conv": conv(block.project)}}
+        if block.expand is not None:
+            tree["expand"] = {"conv": conv(block.expand)}
+        if block.se is not None:
+            tree["se"] = {"fc1": lin(block.se.fc1), "fc2": lin(block.se.fc2)}
+        return cls.from_flax(tree, block.kernel, block.depthwise.conv.weight.device)
+
+
+def _weights(params, kernel_size: int, device) -> BlockWeights:
+    if isinstance(params, BlockWeights):
+        return params
+    return BlockWeights.from_flax(params, kernel_size, device)
+
+
+def _act(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+    if name == "relu":
+        return torch.relu(x)
+    if name == "hardswish":
+        return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    return x
+
+
+def _out_size(n: int, stride: int) -> int:
+    return (n - 1) // stride + 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def inverted_residual_plain(x: torch.Tensor, bw: BlockWeights, stride: int,
+                            act: str, residual: bool, dilation: int,
+                            out_dtype: torch.dtype) -> torch.Tensor:
+    """One block in plain PyTorch ops, at the TPU kernel's precision."""
+    _, h, w, _ = x.shape
+    k = bw.kernel_size
+    if bw.exp_w is not None:
+        y = x.to(BF16).float() @ bw.exp_w.float().t()
+        y = _act(y + bw.exp_b, act).to(BF16)
+    else:
+        y = x.to(BF16)
+    pad = (k - 1) // 2 * dilation
+    yp = F.pad(y, (0, 0, pad, pad, pad, pad))
+    oh, ow = _out_size(h, stride), _out_size(w, stride)
+    acc = None
+    for kx in range(k):
+        for ky in range(k):
+            oy, ox = ky * dilation, kx * dilation
+            tap = yp[:, oy:oy + (oh - 1) * stride + 1:stride,
+                     ox:ox + (ow - 1) * stride + 1:stride, :]
+            term = (tap * bw.dw_w[ky * k + kx]).float()  # bf16-rounded product
+            acc = term if acc is None else acc + term
+    y = _act(acc + bw.dw_b, act).to(BF16)
+    if bw.se1_w is not None:
+        s = y.float().mean(dim=(1, 2))
+        s = torch.relu(s @ bw.se1_w + bw.se1_b)
+        s = s @ bw.se2_w + bw.se2_b
+        s = torch.clamp(s + 3.0, 0.0, 6.0) / 6.0
+        y = y * s.to(BF16)[:, None, None, :]
+    out = y.float() @ bw.proj_w.float().t() + bw.proj_b
+    if residual:
+        out = out + x.float()
+    return out.to(out_dtype)
+
+
+def tail_chain_plain(x: torch.Tensor, blocks: Sequence[BlockWeights], act: str,
+                     dilation: int) -> torch.Tensor:
+    """Stride-1 blocks in sequence, float32 between blocks, residual where
+    the block's input and output widths agree; the result in ``x.dtype``."""
+    val = x
+    for bw in blocks:
+        val = inverted_residual_plain(val, bw, 1, act, bw.cin == bw.cout,
+                                      dilation, torch.float32)
+    return val.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+          gate: Optional[torch.Tensor], rows_per_image: int,
+          res: Optional[torch.Tensor], out: torch.Tensor, act: Optional[str],
+          name: str) -> None:
+    n, k = w.shape
+    m = a.numel() // k
+    fn = _build.bind("fused_block", "mtg_pw_gemm", _GEMM_ARGS)
+    err = fn(a.data_ptr(), int(a.dtype == torch.float32), w.data_ptr(),
+             bias.data_ptr(), _ptr(gate), rows_per_image, _ptr(res),
+             int(res is not None and res.dtype == torch.float32),
+             out.data_ptr(), int(out.dtype == torch.float32), m, n, k,
+             _ACT[act], _build.stream_ptr(a))
+    _build.check(err, name)
+    _build.count(name)
+
+
+def _band_rows(oh: int, w: int, k: int, stride: int, dilation: int) -> int:
+    """Most output rows per depthwise CTA whose padded input band fits the
+    shared-memory budget."""
+    smem = _build.bind("fused_block", "mtg_depthwise_smem", _SMEM_ARGS)
+    rows = oh
+    while rows > 1 and smem(rows, w, k, stride, dilation) > _DW_SMEM_BUDGET:
+        rows = (rows + 1) // 2
+    return rows
+
+
+def _check_input(x: torch.Tensor, bw: BlockWeights) -> None:
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"want a contiguous NHWC tensor, got {tuple(x.shape)}")
+    if x.shape[-1] != bw.cin:
+        raise ValueError(f"input has {x.shape[-1]} channels, block wants {bw.cin}")
+    if bw.dw_w.device != x.device:
+        raise ValueError(f"weights on {bw.dw_w.device}, input on {x.device}")
+    if x.shape[1] * x.shape[2] <= 0 or x.shape[0] > 65535:
+        raise ValueError(f"unsupported shape {tuple(x.shape)}")
+
+
+def inverted_residual_kernels(x: torch.Tensor, bw: BlockWeights, stride: int,
+                              act: str, residual: bool, dilation: int,
+                              out_dtype: torch.dtype) -> torch.Tensor:
+    """One block as the four CUDA kernels. ``x`` is bf16 or float32 (the
+    chain's values between blocks); the output is ``out_dtype``."""
+    _check_input(x, bw)
+    b, h, w, _ = x.shape
+    k, cexp = bw.kernel_size, bw.cexp
+    dev = x.device
+    if bw.exp_w is not None:
+        y = torch.empty((b, h, w, cexp), dtype=BF16, device=dev)
+        _gemm(x, bw.exp_w, bw.exp_b, None, 0, None, y, act, "expand_gemm")
+    else:
+        y = x.to(BF16)
+    oh, ow = _out_size(h, stride), _out_size(w, stride)
+    band = _band_rows(oh, w, k, stride, dilation)
+    nbands = -(-oh // band)
+    dw = torch.empty((b, oh, ow, cexp), dtype=BF16, device=dev)
+    sums = (torch.empty((b, nbands, cexp), dtype=torch.float32, device=dev)
+            if bw.se1_w is not None else None)
+    fn = _build.bind("fused_block", "mtg_depthwise", _DW_ARGS)
+    err = fn(y.data_ptr(), bw.dw_w.data_ptr(), bw.dw_b.data_ptr(), dw.data_ptr(),
+             _ptr(sums), b, h, w, cexp, oh, ow, k, stride, dilation, band,
+             _ACT[act], _build.stream_ptr(x))
+    _build.check(err, "depthwise")
+    _build.count("depthwise")
+    gate = None
+    if sums is not None:
+        gate = torch.empty((b, cexp), dtype=BF16, device=dev)
+        fn = _build.bind("fused_block", "mtg_se_gate", _SE_ARGS)
+        err = fn(sums.data_ptr(), nbands, oh * ow, bw.se1_w.data_ptr(),
+                 bw.se1_b.data_ptr(), bw.se2_w.data_ptr(), bw.se2_b.data_ptr(),
+                 gate.data_ptr(), b, cexp, bw.se1_w.shape[1], _build.stream_ptr(x))
+        _build.check(err, "se_gate")
+        _build.count("se_gate")
+    out = torch.empty((b, oh, ow, bw.cout), dtype=out_dtype, device=dev)
+    _gemm(dw, bw.proj_w, bw.proj_b, gate, oh * ow, x if residual else None,
+          out, None, "project_gemm")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public wrappers (the JAX package's signatures)
+# ---------------------------------------------------------------------------
+
+
+def fused_inverted_residual(x: torch.Tensor, params, kernel_size: int = 3,
+                            stride: int = 1, act: str = "relu",
+                            residual: bool = False,
+                            dilation: int = 1) -> torch.Tensor:
+    """Run one folded inverted-residual block. ``params`` is a folded Flax
+    block subtree or a :class:`BlockWeights`. The residual applies when
+    asked for, stride is 1 and cin == cout. A CUDA tensor (bf16) goes
+    through the kernels; a CPU tensor takes the plain version."""
+    bw = _weights(params, kernel_size, x.device)
+    use_residual = residual and stride == 1 and bw.cin == bw.cout
+    if x.device.type == "cpu":
+        return inverted_residual_plain(x, bw, stride, act, use_residual,
+                                       dilation, x.dtype)
+    if x.device.type != "cuda" or x.dtype != BF16:
+        raise ValueError(f"kernel path wants a bf16 CUDA tensor, got {x.dtype} on {x.device}")
+    return inverted_residual_kernels(x, bw, stride, act, use_residual,
+                                     dilation, BF16)
+
+
+def fused_tail_chain(x: torch.Tensor, params_list: Sequence, kernel_size: int = 5,
+                     act: str = "hardswish", dilation: int = 2) -> torch.Tensor:
+    """A chain of stride-1 blocks (the serving tail, blocks 12-14), float32
+    between blocks, residual where cin == cout. Widths come from the
+    params. A CUDA tensor (bf16) goes through the kernels, whose launches
+    count under ``BLOCK_KERNELS``; a CPU tensor takes the plain version."""
+    blocks =[_weights(p, kernel_size, x.device) for p in params_list]
+    if x.device.type == "cpu":
+        return tail_chain_plain(x, blocks, act, dilation)
+    if x.device.type != "cuda" or x.dtype != BF16:
+        raise ValueError(f"kernel path wants a bf16 CUDA tensor, got {x.dtype} on {x.device}")
+    val = x
+    for i, bw in enumerate(blocks):
+        last = i == len(blocks) - 1
+        val = inverted_residual_kernels(
+            val, bw, 1, act, bw.cin == bw.cout, dilation,
+            BF16 if last else torch.float32,
+        )
+    return val

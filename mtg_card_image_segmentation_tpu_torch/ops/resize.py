@@ -1,0 +1,82 @@
+"""Half-pixel (align_corners=False) bilinear resize, NHWC, no antialiasing.
+
+Same formulation as the JAX package's ``ops/resize.py``: separable, gather +
+lerp along H, then along W, in float32, ``a + (b - a) * w``. That is the
+arithmetic the mask decode kernel (``ops/kernels/decoder.py``) repeats
+bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def half_pixel_coords(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(lo, hi, w_hi) for half-pixel linear interpolation, in float32 like
+    the JAX reference: src = (dst + 0.5) * (in/out) - 0.5, clamped to
+    [0, in-1]."""
+    scale = np.float32(in_size / out_size)
+    dst = np.arange(out_size, dtype=np.float32)
+    src = np.clip((dst + np.float32(0.5)) * scale - np.float32(0.5),
+                  np.float32(0.0), np.float32(in_size - 1)).astype(np.float32)
+    lo = np.floor(src).astype(np.int32)
+    hi = np.minimum(lo + 1, in_size - 1).astype(np.int32)
+    w_hi = (src - lo.astype(np.float32)).astype(np.float32)
+    return lo, hi, w_hi
+
+
+def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense (out, in) half-pixel bilinear interpolation matrix (2 nonzeros
+    per row), built in float64 and cast to float32 (copy of the JAX
+    package's ``ops/pallas/decoder.py::_interp_matrix``)."""
+    scale = in_size / out_size
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.clip((dst + 0.5) * scale - 0.5, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w_hi = src - lo
+    m = np.zeros((out_size, in_size), np.float32)
+    m[np.arange(out_size), lo] += (1.0 - w_hi).astype(np.float32)
+    m[np.arange(out_size), hi] += w_hi.astype(np.float32)
+    return m
+
+
+def _interp_taps(in_size: int, out_size: int):
+    """The two taps of each row of :func:`_interp_matrix`: (lo, hi) int32
+    indices and (w0, w1) float32 weights, from the same float64 math, so
+    ``m[r, lo] * a + m[r, hi] * b == w0 * a + w1 * b`` (where lo == hi the
+    matrix holds w0 + w1 = 1 with w1 = 0)."""
+    scale = in_size / out_size
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.clip((dst + 0.5) * scale - 0.5, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w_hi = src - lo
+    return (lo.astype(np.int32), hi.astype(np.int32),
+            (1.0 - w_hi).astype(np.float32), w_hi.astype(np.float32))
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize NHWC (or HWC) ``x`` to (out_h, out_w): torch
+    ``F.interpolate(mode='bilinear', align_corners=False)`` semantics,
+    computed in float32 and cast back to ``x.dtype``."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    _, in_h, in_w, _ = x.shape
+    xf = x.float()
+    if in_h != out_h:
+        lo, hi, w = (torch.from_numpy(a).to(x.device) for a in half_pixel_coords(in_h, out_h))
+        top = xf.index_select(1, lo.long())
+        bot = xf.index_select(1, hi.long())
+        xf = top + (bot - top) * w[None, :, None, None]
+    if in_w != out_w:
+        lo, hi, w = (torch.from_numpy(a).to(x.device) for a in half_pixel_coords(in_w, out_w))
+        left = xf.index_select(2, lo.long())
+        right = xf.index_select(2, hi.long())
+        xf = left + (right - left) * w[None, None, :, None]
+    out = xf.to(x.dtype)
+    return out[0] if squeeze else out

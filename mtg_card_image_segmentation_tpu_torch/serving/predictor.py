@@ -1,0 +1,211 @@
+"""Batched segmentation predictor on the card — the serving main path
+(counterpart of the JAX package's ``serving/predictor.py``).
+
+``SegPredictor.predict`` takes uint8 (B, H, W, 3) images and returns uint8
+{0,1} (B, H, W) masks. With ``use_kernels=True`` (the default):
+
+- BatchNorm is folded into the convs and the uint8 -> ImageNet
+  normalization into the stem conv, so the input is only centered;
+- the stem, blocks 0-11, ``head_conv`` and the head's 3x3 ``cbr`` conv are
+  stock PyTorch convs (channels_last views of NHWC tensors);
+- blocks 12-14 run as the hand-written tail chain (``fused_tail_chain``);
+- the LR-ASPP head collapses to one card-minus-background score map at
+  stride 8 (``_head_score_s8``), which the mask decode kernel
+  (``fused_mask_decode``) turns into the full-size uint8 mask.
+
+``use_kernels=False`` is the reference-shaped path: unfolded normalize,
+full head, bilinear resize and argmax, all in stock ops.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mtg_card_image_segmentation_tpu_torch.data.preprocess import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+)
+from mtg_card_image_segmentation_tpu_torch.export.fold_bn import fold_batch_norm
+from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
+    LOW_TAP_ROW,
+    MOBILENET_V3_LARGE_ROWS,
+    MobileNetV3Backbone,
+)
+from mtg_card_image_segmentation_tpu_torch.models.lraspp import LRASPPHead
+from mtg_card_image_segmentation_tpu_torch.ops.kernels.decoder import fused_mask_decode
+from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import (
+    BlockWeights,
+    fused_tail_chain,
+)
+from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_matrix, bilinear_resize
+from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
+from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
+
+# backbone blocks that run through the hand-written kernels: the dilated
+# tail, as one chain
+FUSED_BLOCKS = (12, 13, 14)
+
+_IMAGENET_MEAN = np.array(IMAGENET_MEAN, np.float32)
+_IMAGENET_STD = np.array(IMAGENET_STD, np.float32)
+
+_INTERP: Dict[Tuple[int, int, str], torch.Tensor] = {}
+
+
+def _fold_normalize_into_stem(params):
+    """Fold uint8 -> ImageNet normalization into the stem conv.
+
+    With u = u8 - 255*mean (per channel): (u8/255 - mean)/std == u * a,
+    a_c = 1/(255*std_c), exactly, with no bias shift, so the stem's zero
+    padding of u still stands for x_norm = 0.
+    """
+    stem = params["backbone"]["stem"]["conv"]
+    k = np.asarray(stem["kernel"], np.float32)  # (3, 3, 3, 16)
+    a = 1.0 / (255.0 * _IMAGENET_STD)
+    k_new = k * a[None, None, :, None]
+    b_new = np.asarray(stem["bias"], np.float32)
+    new = dict(params)
+    new["backbone"] = dict(params["backbone"])
+    new["backbone"]["stem"] = {"conv": {"kernel": k_new, "bias": b_new}}
+    return new
+
+
+def tail_weights(backbone: MobileNetV3Backbone) -> List[BlockWeights]:
+    """The kernels' weights of the tail blocks (12-14), in chain order."""
+    return [BlockWeights.from_module(backbone.block(i)) for i in FUSED_BLOCKS]
+
+
+def _fused_backbone(backbone: MobileNetV3Backbone, x: torch.Tensor,
+                    tail: Optional[Sequence[BlockWeights]] = None) -> Dict[str, torch.Tensor]:
+    """Backbone forward. With ``tail`` (the kernel weights of blocks 12-14)
+    those blocks run as the hand-written tail chain; ``tail=None`` runs
+    every block as its module. Returns the {"low", "high"} taps."""
+    x = backbone.stem(x)
+    taps = {}
+    for i, (k, _exp, _out, _se, act, _stride, _tail) in enumerate(MOBILENET_V3_LARGE_ROWS):
+        blk = backbone.block(i)
+        if tail is not None and i in FUSED_BLOCKS:
+            if i == FUSED_BLOCKS[0]:
+                x = fused_tail_chain(x.contiguous(), tail, kernel_size=k, act=act,
+                                     dilation=blk.dilation)
+        else:
+            x = blk(x)
+        if i == LOW_TAP_ROW:
+            taps["low"] = x
+    taps["high"] = backbone.head_conv(x)
+    return taps
+
+
+def _head_gate_vectors(head: LRASPPHead):
+    """Folded classifier vectors (w_scale, w_hi_d, w_lo_d, bias_d), fp32:
+    card-minus-background differences of the two classifiers."""
+    w_scale = head.scale.weight.flatten(1).float().t()  # (C_high, C_inter)
+    w_hi = head.high_classifier.weight.flatten(1).float()  # (2, C_inter)
+    b_hi = head.high_classifier.bias.float()
+    w_lo = head.low_classifier.weight.flatten(1).float()  # (2, C_low)
+    b_lo = head.low_classifier.bias.float()
+    return (
+        w_scale,
+        w_hi[1] - w_hi[0],
+        w_lo[1] - w_lo[0],
+        (b_hi[1] - b_hi[0]) + (b_lo[1] - b_lo[0]),
+    )
+
+
+def interp_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``_interp_matrix`` as a float32 tensor on ``device``, cached per
+    shape."""
+    key = (in_size, out_size, str(device))
+    if key not in _INTERP:
+        _INTERP[key] = torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
+    return _INTERP[key]
+
+
+def _head_score_s8(head: LRASPPHead, low: torch.Tensor, high: torch.Tensor,
+                   vectors: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+    """Card-minus-background score at stride 8, equal in exact arithmetic
+    to ``logits[..., 1] - logits[..., 0]`` of the head before the final
+    upsample:
+
+      score_s8 = up2x(high_cls_diff(cbr(high) * gate(high))) + low_cls_diff(low)
+
+    with the per-(batch, channel) gate folded into the classifier.
+    ``vectors`` is ``_head_gate_vectors(head)``, computed here if not
+    given."""
+    x = head.cbr(high)
+    m = high.mean(dim=(1, 2), dtype=torch.float32)
+    if vectors is None:
+        vectors = _head_gate_vectors(head)
+    w_scale, w_hi_d, w_lo_d, bias_d = vectors
+    gate = torch.sigmoid(m @ w_scale)  # (B, C_inter)
+    hs = torch.einsum("bhwc,bc->bhw", x.float(), gate * w_hi_d[None, :])
+    ls = torch.einsum("bhwc,c->bhw", low.float(), w_lo_d)
+    uh = interp_matrix(hs.shape[1], ls.shape[1], hs.device)
+    uw = interp_matrix(hs.shape[2], ls.shape[2], hs.device)
+    hs = torch.einsum("Hh,bhw,Ww->bHW", uh, hs, uw)
+    return hs + ls + bias_d
+
+
+def _to_images(images_u8, device: torch.device) -> torch.Tensor:
+    t = images_u8 if isinstance(images_u8, torch.Tensor) else torch.from_numpy(np.asarray(images_u8))
+    if t.dtype != torch.uint8 or t.dim() != 4 or t.shape[-1] != 3:
+        raise ValueError(f"want (B, H, W, 3) uint8, got {tuple(t.shape)} {t.dtype}")
+    return t.to(device, non_blocking=True)
+
+
+class SegPredictor:
+    """predict(uint8 images) -> uint8 masks, on the card.
+
+    ``params``/``batch_stats`` are the JAX package's Flax trees as numpy
+    arrays (or the same layout from ``utils.params.init_flax_like``).
+    ``device=None`` means the CUDA card and raises if there is none; the
+    CPU is used only with ``device="cpu"``, where the kernels' plain
+    versions run. Gate a deployment on :meth:`mask_agreement` >= 0.999.
+    """
+
+    def __init__(self, params, batch_stats, height: int, width: int,
+                 use_kernels: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 device=None) -> None:
+        self.device = resolve_device(device)
+        self.height, self.width = height, width
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        folded = fold_batch_norm(params, batch_stats)
+        if use_kernels:
+            folded = _fold_normalize_into_stem(folded)
+        self.model = from_flax(folded, None, dtype=dtype).to(self.device, dtype)
+        self.model = self.model.to(memory_format=torch.channels_last)
+        if use_kernels:
+            with torch.no_grad():
+                self._tail = tail_weights(self.model.backbone)
+                self._head_vectors = _head_gate_vectors(self.model.head)
+        self._center = torch.tensor(255.0 * _IMAGENET_MEAN, dtype=torch.float32,
+                                    device=self.device)
+
+    @torch.inference_mode()
+    def predict(self, images_u8) -> torch.Tensor:
+        """(B, H, W, 3) uint8 (at model resolution) -> (B, H, W) uint8
+        {0,1} masks, on the predictor's device."""
+        images = _to_images(images_u8, self.device)
+        if self.use_kernels:
+            # normalization is folded into the stem weights; the centering
+            # constant makes zero padding == ImageNet zero
+            x = (images.float() - self._center).to(self.dtype)
+            taps = _fused_backbone(self.model.backbone, x, self._tail)
+            score = _head_score_s8(self.model.head, taps["low"], taps["high"],
+                                   self._head_vectors)
+            return fused_mask_decode(score, self.height, self.width)
+        x = (images.float() / 255.0).to(self.dtype)
+        mean = torch.tensor(IMAGENET_MEAN, dtype=self.dtype, device=self.device)
+        std = torch.tensor(IMAGENET_STD, dtype=self.dtype, device=self.device)
+        logits = self.model.logits_s8((x - mean) / std)
+        full = bilinear_resize(logits.float(), self.height, self.width)
+        return torch.argmax(full, dim=-1).to(torch.uint8)
+
+    def mask_agreement(self, other: "SegPredictor", images_u8) -> float:
+        """Fraction of pixels whose class decision matches ``other``."""
+        a = self.predict(images_u8).cpu()
+        b = other.predict(images_u8).cpu()
+        return float((a == b).float().mean())

@@ -1,0 +1,183 @@
+"""Weight bridge between the JAX package's Flax trees and the port's modules.
+
+The Flax tree (``params`` and ``batch_stats`` of ``CardSegmentationModel``,
+as nested dicts of numpy arrays) maps name for name onto the port's
+``state_dict``:
+
+- conv kernels HWIO -> OIHW; that one permutation also turns a depthwise
+  ``(k, k, 1, C)`` into ``(C, 1, k, k)`` and a 1x1 ``(1, 1, I, O)`` (SE,
+  classifiers) into ``(O, I, 1, 1)``;
+- BN ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
+  ``running_mean/running_var`` of ``BatchNorm2d(eps=1e-3, momentum=0.01)``.
+
+``init_flax_like`` makes such a tree from a numpy seed, for runs that have
+no trained checkpoint and no JAX (the card's machine).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mtg_card_image_segmentation_tpu_torch.models.layers import make_divisible
+from mtg_card_image_segmentation_tpu_torch.models.lraspp import CardSegmentationModel
+from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
+    HIGH_CHANNELS,
+    LOW_CHANNELS,
+    MOBILENET_V3_LARGE_ROWS,
+)
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def flax_to_state_dict(params: Dict[str, Any],
+                       batch_stats: Optional[Dict[str, Any]] = None) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``params`` (+ ``batch_stats``) -> torch ``state_dict`` names."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def walk(p: Any, s: Any, path: Tuple[str, ...]) -> None:
+        for key, val in p.items():
+            sub = (s or {}).get(key) if isinstance(s, dict) else None
+            if isinstance(val, dict):
+                walk(val, sub, path + (key,))
+                continue
+            name = ".".join(path)
+            t = _to_tensor(val)
+            if key == "kernel":
+                sd[f"{name}.weight"] = t.permute(3, 2, 0, 1).contiguous()
+            elif key == "scale":
+                sd[f"{name}.weight"] = t
+            elif key == "bias":
+                sd[f"{name}.bias"] = t
+            else:
+                raise KeyError(f"unknown Flax leaf {name}/{key}")
+        if path and path[-1] == "bn" and s is not None:
+            name = ".".join(path)
+            for k, tk in _STATS.items():
+                sd[f"{name}.{tk}"] = _to_tensor(s[k])
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    walk(params, batch_stats, ())
+    return sd
+
+
+def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Inverse of :func:`flax_to_state_dict`: (params, batch_stats) numpy
+    trees in the Flax layout."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    inv_stats = {v: k for k, v in _STATS.items()}
+    for name, t in sd.items():
+        *path, leaf = name.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy()
+        if leaf in inv_stats:
+            tree, key = stats, inv_stats[leaf]
+        elif leaf == "weight" and a.ndim == 4:
+            tree, key, a = params, "kernel", np.transpose(a, (2, 3, 1, 0))
+        elif leaf == "weight":
+            tree, key = params, "scale"
+        else:
+            tree, key = params, leaf
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree[key] = np.ascontiguousarray(a)
+    return params, stats
+
+
+def expanded_widths(params: Dict[str, Any]):
+    """Per-block expansion widths read from the tree (None = table value),
+    so slim (channel-pruned) trees build the right module widths."""
+    out = []
+    for i, row in enumerate(MOBILENET_V3_LARGE_ROWS):
+        c = int(np.shape(params["backbone"][f"block{i}"]["depthwise"]["conv"]["kernel"])[-1])
+        out.append(None if c == row[1] else c)
+    return tuple(out) if any(o is not None for o in out) else None
+
+
+def from_flax(params: Dict[str, Any], batch_stats: Optional[Dict[str, Any]] = None,
+              dtype: torch.dtype = torch.float32) -> CardSegmentationModel:
+    """Build the port's ``CardSegmentationModel`` (eval mode, float32
+    parameters, compute ``dtype``) from a Flax tree. A tree without
+    ``batch_stats`` is taken as BN-folded (``fold_bn=True``)."""
+    model = CardSegmentationModel(
+        fold_bn=batch_stats is None,
+        expanded_overrides=expanded_widths(params),
+        dtype=dtype,
+    )
+    model.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
+    return model.eval()
+
+
+def init_flax_like(seed: int, num_classes: int = 2,
+                   inter_channels: int = 128) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats) with the Flax layout and names of the JAX
+    package's ``CardSegmentationModel`` variables, drawn from a numpy seed.
+
+    Conv kernels are LeCun-normal (Flax's default conv init); BN scale,
+    bias, mean and var are moved off their init values (1, 0, 0, 1) so that
+    folding is exercised; SE and classifier biases are small and nonzero.
+    """
+    rng = np.random.default_rng(seed)
+
+    def kernel(k, cin, cout, groups=1):
+        fan_in = k * k * cin // groups
+        shape = (k, k, cin // groups, cout)
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    def small(n, s=0.1):
+        return (s * rng.standard_normal(n)).astype(np.float32)
+
+    def cbr(k, cin, cout, groups=1):
+        p = {"conv": {"kernel": kernel(k, cin, cout, groups)},
+             "bn": {"scale": rng.uniform(0.8, 1.2, cout).astype(np.float32),
+                    "bias": small(cout)}}
+        s = {"bn": {"mean": small(cout),
+                    "var": rng.uniform(0.6, 1.4, cout).astype(np.float32)}}
+        return p, s
+
+    params: Dict[str, Any] = {"backbone": {}, "head": {}}
+    stats: Dict[str, Any] = {"backbone": {}, "head": {}}
+    bb, bs = params["backbone"], stats["backbone"]
+    bb["stem"], bs["stem"] = cbr(3, 3, 16)
+    cin = 16
+    for i, (k, exp, out, se, _act, _stride, _tail) in enumerate(MOBILENET_V3_LARGE_ROWS):
+        p: Dict[str, Any] = {}
+        s: Dict[str, Any] = {}
+        if exp != cin:
+            p["expand"], s["expand"] = cbr(1, cin, exp)
+        p["depthwise"], s["depthwise"] = cbr(k, exp, exp, groups=exp)
+        if se:
+            sq = make_divisible(exp // 4, 8)
+            p["se"] = {"fc1": {"kernel": kernel(1, exp, sq), "bias": small(sq)},
+                       "fc2": {"kernel": kernel(1, sq, exp), "bias": small(exp)}}
+        p["project"], s["project"] = cbr(1, exp, out)
+        bb[f"block{i}"], bs[f"block{i}"] = p, s
+        cin = out
+    bb["head_conv"], bs["head_conv"] = cbr(1, cin, HIGH_CHANNELS)
+    hd, hs = params["head"], stats["head"]
+    hd["cbr"], hs["cbr"] = cbr(3, HIGH_CHANNELS, inter_channels)
+    hd["scale"] = {"kernel": kernel(1, HIGH_CHANNELS, inter_channels)}
+    hd["low_classifier"] = {"kernel": kernel(1, LOW_CHANNELS, num_classes),
+                            "bias": small(num_classes)}
+    hd["high_classifier"] = {"kernel": kernel(1, inter_channels, num_classes),
+                             "bias": small(num_classes)}
+    return params, stats
+
+
+def count_parameters(params: Dict[str, Any]) -> int:
+    """Total number of scalars in a Flax-layout param tree."""
+    total = 0
+    for v in params.values():
+        total += count_parameters(v) if isinstance(v, dict) else int(np.prod(np.shape(v)))
+    return total

@@ -1,0 +1,173 @@
+"""The port's serving path (SegPredictor) against the JAX package's, on the
+CPU, and the port's isolation from JAX.
+
+On the CPU the predictor's kernel path runs the kernels' plain versions;
+``chip_smoke.py`` holds the card's kernel path against this CPU path.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mtg_card_image_segmentation_tpu.serving import predictor as jax_pred
+
+from mtg_card_image_segmentation_tpu_torch.export.fold_bn import fold_batch_norm
+from mtg_card_image_segmentation_tpu_torch.serving import predictor as port_pred
+from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+from mtg_card_image_segmentation_tpu_torch.utils.params import (
+    from_flax,
+    init_flax_like,
+)
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "mtg_card_image_segmentation_tpu_torch"
+H, W, B = 64, 48, 2
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return init_flax_like(0)
+
+
+@pytest.fixture(scope="module")
+def images():
+    return np.random.default_rng(1).integers(0, 256, (B, H, W, 3), np.uint8)
+
+
+def test_predictor_fp32_matches_jax_predictor(weights, images):
+    """Full width, 64x48, b2, fp32: the port's kernel path (plain versions
+    on the CPU) and its reference path against the JAX reference path,
+    mask agreement >= 0.999 (the repo's deployment gate,
+    serving/predictor.py:403)."""
+    params, stats = weights
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jax.tree.map(jnp.asarray, stats)
+    theirs = np.asarray(jax_pred.SegPredictor(
+        jp, js, H, W, use_pallas=False, dtype=jnp.float32, auto_layout=False,
+    ).predict(images))
+    for use_kernels in (True, False):
+        ours = SegPredictor(params, stats, H, W, use_kernels=use_kernels,
+                            dtype=torch.float32, device="cpu").predict(images)
+        assert ours.dtype == torch.uint8 and tuple(ours.shape) == (B, H, W)
+        assert set(np.unique(ours.numpy())) <= {0, 1}
+        assert (ours.numpy() == theirs).mean() >= 0.999
+
+
+def test_score_map_fp32_matches_jax_composition(weights, images):
+    """The fp32 stride-8 score map: port _fold_normalize_into_stem ->
+    _fused_backbone (every block as its module) -> _head_score_s8 against
+    the same JAX composition with fused_ids=(), 1e-4 relative to the map's
+    largest value (the maps differ only in summation order)."""
+    folded = port_pred._fold_normalize_into_stem(fold_batch_norm(*weights))
+    x = images.astype(np.float32) - 255.0 * port_pred._IMAGENET_MEAN
+    jt = jax.tree.map(jnp.asarray, folded)
+
+    @jax.jit
+    def jax_score(t, x):
+        taps = jax_pred._fused_backbone(t["backbone"], x, jnp.float32, fused_ids=())
+        return jax_pred._head_score_s8(t["head"], taps["low"], taps["high"], jnp.float32)
+
+    want = np.asarray(jax_score(jt, jnp.asarray(x)))
+    model = from_flax(folded, None, dtype=torch.float32)
+    with torch.no_grad():
+        taps = port_pred._fused_backbone(model.backbone, torch.from_numpy(x))
+        got = port_pred._head_score_s8(model.head, taps["low"], taps["high"]).numpy()
+    assert got.shape == want.shape == (B, H // 8, W // 8)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_bf16_kernel_path_agrees_with_reference_path(weights, images):
+    """bf16 on the CPU: the kernel path (tail chain and decode as plain
+    versions) against the port's reference path. >= 0.99, the repo's floor
+    for random-init weights, which sit near the decision boundary
+    (tests/test_serving.py:141-165); the two paths round bf16 in different
+    places."""
+    params, stats = weights
+    a = SegPredictor(params, stats, H, W, device="cpu")
+    b = SegPredictor(params, stats, H, W, use_kernels=False, device="cpu")
+    assert a.dtype == torch.bfloat16
+    assert a.mask_agreement(b, images) >= 0.99
+
+
+def test_predictor_refuses_cpu_unless_asked(weights, monkeypatch):
+    """No device means the card; without CUDA that raises instead of
+    running on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SegPredictor(*weights, H, W)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SegPredictor(*weights, H, W, device="cuda")
+
+
+def test_predictor_rejects_bad_images(weights):
+    p = SegPredictor(*weights, H, W, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError):
+        p.predict(np.zeros((1, H, W, 3), np.float32))
+
+
+_JAX_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|orbax|mtg_card_image_segmentation_tpu)(\s|\.|$)",
+    re.M,
+)
+
+
+def test_port_sources_import_no_jax():
+    """No port source nor chip_smoke.py imports jax, flax, optax, orbax or
+    the JAX package, nor names a module of it without ``_torch``."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        text = f.read_text()
+        assert not _JAX_IMPORT.search(text), f
+        # a dotted module path of the JAX package (file paths in comments,
+        # "mtg_card_image_segmentation_tpu/...", only name the reference)
+        assert not re.search(r"\bmtg_card_image_segmentation_tpu\.", text), f
+
+
+def test_port_imports_with_jax_blocked():
+    """Every port module and chip_smoke.py import in a process where
+    importing jax fails."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'flax', 'mtg_card_image_segmentation_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {mods + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result where CUDA is
+    absent, and also from a directory that holds nothing else of the
+    repo."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
