@@ -1,5 +1,5 @@
 """Model factory (counterpart of the JAX package's ``models/registry.py``).
-The port registers the segmentation model only."""
+The port registers the segmentation model and the HRNet corner-pose model."""
 
 from __future__ import annotations
 
@@ -43,5 +43,18 @@ def _lraspp(num_classes: int = 2, inter_channels: int = 128,
         inter_channels=inter_channels,
         fold_bn=fold_bn,
         expanded_overrides=expanded_overrides,
+        dtype=_DTYPES[compute_dtype],
+    )
+
+
+@register("hrnet_pose")
+def _hrnet_pose(num_keypoints: int = 4, heatmap_height: int = 120,
+                heatmap_width: int = 160, compute_dtype: str = "bfloat16"):
+    from mtg_card_image_segmentation_tpu_torch.models.hrnet import HRNetPose
+
+    return HRNetPose(
+        num_keypoints=num_keypoints,
+        heatmap_height=heatmap_height,
+        heatmap_width=heatmap_width,
         dtype=_DTYPES[compute_dtype],
     )

@@ -25,7 +25,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decoder", "fused_block")
+SOURCES = ("decoder", "fused_block", "preprocess", "stem")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -80,3 +80,27 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         xf = left + (right - left) * w[None, None, :, None]
     out = xf.to(x.dtype)
     return out[0] if squeeze else out
+
+
+def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output position for :func:`nearest_resize`:
+    ``min(int(float32(dst) * float32(in/out)), in - 1)``, the float32
+    arithmetic of the JAX reference."""
+    dst = np.arange(out_size, dtype=np.float32)
+    idx = (dst * np.float32(in_size / out_size)).astype(np.int32)
+    return np.minimum(idx, in_size - 1).astype(np.int64)
+
+
+def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC (or HWC) ``x``, src = floor(dst *
+    in/out), as an explicit gather with the reference's index rule (which
+    ``F.interpolate(mode='nearest')`` is not promised to share at
+    non-integer ratios)."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    _, in_h, in_w, _ = x.shape
+    idx_h = torch.from_numpy(nearest_indices(in_h, out_h)).to(x.device)
+    idx_w = torch.from_numpy(nearest_indices(in_w, out_w)).to(x.device)
+    out = x.index_select(1, idx_h).index_select(2, idx_w)
+    return out[0] if squeeze else out

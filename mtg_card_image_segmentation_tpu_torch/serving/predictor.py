@@ -13,6 +13,12 @@
   stride 8 (``_head_score_s8``), which the mask decode kernel
   (``fused_mask_decode``) turns into the full-size uint8 mask.
 
+Two options, both off by default as in the reference: ``fused_stem=True``
+runs the stem as the hand-written stem kernel (``fused_stem``: uint8 in,
+centering, conv, bias and hardswish in one pass), and ``fused_head=True``
+runs the head's tail and the decode as one kernel (``fused_head_decode``,
+``_head_decode_mask``).
+
 ``use_kernels=False`` is the reference-shaped path: unfolded normalize,
 full head, bilinear resize and argmax, all in stock ops.
 """
@@ -35,11 +41,15 @@ from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
     MobileNetV3Backbone,
 )
 from mtg_card_image_segmentation_tpu_torch.models.lraspp import LRASPPHead
-from mtg_card_image_segmentation_tpu_torch.ops.kernels.decoder import fused_mask_decode
+from mtg_card_image_segmentation_tpu_torch.ops.kernels.decoder import (
+    fused_head_decode,
+    fused_mask_decode,
+)
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import (
     BlockWeights,
     fused_tail_chain,
 )
+from mtg_card_image_segmentation_tpu_torch.ops.kernels.stem import fused_stem
 from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_matrix, bilinear_resize
 from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
@@ -78,11 +88,14 @@ def tail_weights(backbone: MobileNetV3Backbone) -> List[BlockWeights]:
 
 
 def _fused_backbone(backbone: MobileNetV3Backbone, x: torch.Tensor,
-                    tail: Optional[Sequence[BlockWeights]] = None) -> Dict[str, torch.Tensor]:
+                    tail: Optional[Sequence[BlockWeights]] = None,
+                    stem_done: bool = False) -> Dict[str, torch.Tensor]:
     """Backbone forward. With ``tail`` (the kernel weights of blocks 12-14)
     those blocks run as the hand-written tail chain; ``tail=None`` runs
-    every block as its module. Returns the {"low", "high"} taps."""
-    x = backbone.stem(x)
+    every block as its module. With ``stem_done`` the input is already the
+    stem's output (the stem-kernel path). Returns the {"low", "high"} taps."""
+    if not stem_done:
+        x = backbone.stem(x)
     taps = {}
     for i, (k, _exp, _out, _se, act, _stride, _tail) in enumerate(MOBILENET_V3_LARGE_ROWS):
         blk = backbone.block(i)
@@ -123,6 +136,22 @@ def interp_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Te
     return _INTERP[key]
 
 
+def _head_gated(head: LRASPPHead, high: torch.Tensor,
+                vectors: Optional[Tuple[torch.Tensor, ...]] = None):
+    """The head's stock part, shared by its two formulations: the cbr
+    features (B, h16, w16, C_inter), the per-image gate folded into the high
+    classifier's difference vector (B, C_inter) float32, and the low
+    classifier's difference vector and bias. ``vectors`` is
+    ``_head_gate_vectors(head)``, computed here if not given."""
+    x = head.cbr(high)
+    m = high.mean(dim=(1, 2), dtype=torch.float32)
+    if vectors is None:
+        vectors = _head_gate_vectors(head)
+    w_scale, w_hi_d, w_lo_d, bias_d = vectors
+    gate = torch.sigmoid(m @ w_scale)  # (B, C_inter)
+    return x, gate * w_hi_d[None, :], w_lo_d, bias_d
+
+
 def _head_score_s8(head: LRASPPHead, low: torch.Tensor, high: torch.Tensor,
                    vectors: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
     """Card-minus-background score at stride 8, equal in exact arithmetic
@@ -131,21 +160,26 @@ def _head_score_s8(head: LRASPPHead, low: torch.Tensor, high: torch.Tensor,
 
       score_s8 = up2x(high_cls_diff(cbr(high) * gate(high))) + low_cls_diff(low)
 
-    with the per-(batch, channel) gate folded into the classifier.
-    ``vectors`` is ``_head_gate_vectors(head)``, computed here if not
-    given."""
-    x = head.cbr(high)
-    m = high.mean(dim=(1, 2), dtype=torch.float32)
-    if vectors is None:
-        vectors = _head_gate_vectors(head)
-    w_scale, w_hi_d, w_lo_d, bias_d = vectors
-    gate = torch.sigmoid(m @ w_scale)  # (B, C_inter)
-    hs = torch.einsum("bhwc,bc->bhw", x.float(), gate * w_hi_d[None, :])
+    with the per-(batch, channel) gate folded into the classifier."""
+    x, gw, w_lo_d, bias_d = _head_gated(head, high, vectors)
+    hs = torch.einsum("bhwc,bc->bhw", x.float(), gw)
     ls = torch.einsum("bhwc,c->bhw", low.float(), w_lo_d)
     uh = interp_matrix(hs.shape[1], ls.shape[1], hs.device)
     uw = interp_matrix(hs.shape[2], ls.shape[2], hs.device)
     hs = torch.einsum("Hh,bhw,Ww->bHW", uh, hs, uw)
     return hs + ls + bias_d
+
+
+def _head_decode_mask(head: LRASPPHead, low: torch.Tensor, high: torch.Tensor,
+                      out_h: int, out_w: int,
+                      vectors: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+    """cbr and gate in stock ops, then the head's tail and the mask decode
+    as one kernel (``fused_head_decode``): the same function as
+    ``_head_score_s8`` -> ``fused_mask_decode``, with one pass over the two
+    feature maps."""
+    x, gw, w_lo_d, bias_d = _head_gated(head, high, vectors)
+    return fused_head_decode(x.contiguous(), gw, low.contiguous(), w_lo_d, bias_d,
+                             out_h, out_w)
 
 
 def _to_images(images_u8, device: torch.device) -> torch.Tensor:
@@ -163,15 +197,27 @@ class SegPredictor:
     ``device=None`` means the CUDA card and raises if there is none; the
     CPU is used only with ``device="cpu"``, where the kernels' plain
     versions run. Gate a deployment on :meth:`mask_agreement` >= 0.999.
+
+    ``fused_head`` and ``fused_stem`` (both off by default) switch the
+    kernel path's head tail + decode and its stem to their hand-written
+    kernels; ``fused_stem`` needs ``height`` and ``width`` to be multiples
+    of 8. Both need ``use_kernels=True``.
     """
 
     def __init__(self, params, batch_stats, height: int, width: int,
                  use_kernels: bool = True, dtype: torch.dtype = torch.bfloat16,
-                 device=None) -> None:
+                 device=None, fused_head: bool = False,
+                 fused_stem: bool = False) -> None:
+        if (fused_head or fused_stem) and not use_kernels:
+            raise ValueError("fused_head and fused_stem are options of use_kernels=True")
+        if fused_stem and (height % 8 or width % 8):
+            raise ValueError(
+                f"fused_stem needs height and width to be multiples of 8, got {height}x{width}")
         self.device = resolve_device(device)
         self.height, self.width = height, width
         self.dtype = dtype
         self.use_kernels = use_kernels
+        self.fused_head, self.fused_stem = fused_head, fused_stem
         folded = fold_batch_norm(params, batch_stats)
         if use_kernels:
             folded = _fold_normalize_into_stem(folded)
@@ -183,6 +229,11 @@ class SegPredictor:
                 self._head_vectors = _head_gate_vectors(self.model.head)
         self._center = torch.tensor(255.0 * _IMAGENET_MEAN, dtype=torch.float32,
                                     device=self.device)
+        if fused_stem:
+            conv = self.model.backbone.stem.conv
+            with torch.no_grad():  # OIHW -> the kernel's HWIO
+                self._stem = (conv.weight.float().permute(2, 3, 1, 0).contiguous(),
+                              conv.bias.float().contiguous())
 
     @torch.inference_mode()
     def predict(self, images_u8) -> torch.Tensor:
@@ -192,8 +243,16 @@ class SegPredictor:
         if self.use_kernels:
             # normalization is folded into the stem weights; the centering
             # constant makes zero padding == ImageNet zero
-            x = (images.float() - self._center).to(self.dtype)
-            taps = _fused_backbone(self.model.backbone, x, self._tail)
+            if self.fused_stem:
+                x = fused_stem(images.contiguous(), *self._stem, self._center,
+                               out_dtype=self.dtype)
+            else:
+                x = (images.float() - self._center).to(self.dtype)
+            taps = _fused_backbone(self.model.backbone, x, self._tail,
+                                   stem_done=self.fused_stem)
+            if self.fused_head:
+                return _head_decode_mask(self.model.head, taps["low"], taps["high"],
+                                         self.height, self.width, self._head_vectors)
             score = _head_score_s8(self.model.head, taps["low"], taps["high"],
                                    self._head_vectors)
             return fused_mask_decode(score, self.height, self.width)

@@ -1,17 +1,22 @@
 """Weight bridge between the JAX package's Flax trees and the port's modules.
 
-The Flax tree (``params`` and ``batch_stats`` of ``CardSegmentationModel``,
-as nested dicts of numpy arrays) maps name for name onto the port's
-``state_dict``:
+The Flax tree (``params`` and ``batch_stats`` of ``CardSegmentationModel`` or
+``HRNetPose``, as nested dicts of numpy arrays) maps name for name onto the
+port's ``state_dict``:
 
 - conv kernels HWIO -> OIHW; that one permutation also turns a depthwise
   ``(k, k, 1, C)`` into ``(C, 1, k, k)`` and a 1x1 ``(1, 1, I, O)`` (SE,
   classifiers) into ``(O, I, 1, 1)``;
+- transpose-conv kernels (``deconv*``): Flax keeps ``(kh, kw, in, out)`` and
+  does not flip it; torch's ``ConvTranspose2d`` weight is ``(in, out, kh,
+  kw)`` in the gradient form, i.e. spatially flipped, so the bridge flips
+  both spatial axes and permutes;
 - BN ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
   ``running_mean/running_var`` of ``BatchNorm2d(eps=1e-3, momentum=0.01)``.
 
-``init_flax_like`` makes such a tree from a numpy seed, for runs that have
-no trained checkpoint and no JAX (the card's machine).
+``init_flax_like`` and ``init_hrnet_flax_like`` make such trees from a numpy
+seed, for runs that have no trained checkpoint and no JAX (the card's
+machine).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mtg_card_image_segmentation_tpu_torch.models.hrnet import HRNetPose
 from mtg_card_image_segmentation_tpu_torch.models.layers import make_divisible
 from mtg_card_image_segmentation_tpu_torch.models.lraspp import CardSegmentationModel
 from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
@@ -31,6 +37,12 @@ from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
 )
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _is_deconv(module_name: str) -> bool:
+    """Is this Flax/torch module name a transpose conv (``deconv0``, not
+    ``deconv_bn0``)?"""
+    return module_name.startswith("deconv") and not module_name.startswith("deconv_bn")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -52,7 +64,9 @@ def flax_to_state_dict(params: Dict[str, Any],
                 continue
             name = ".".join(path)
             t = _to_tensor(val)
-            if key == "kernel":
+            if key == "kernel" and _is_deconv(path[-1]):
+                sd[f"{name}.weight"] = t.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+            elif key == "kernel":
                 sd[f"{name}.weight"] = t.permute(3, 2, 0, 1).contiguous()
             elif key == "scale":
                 sd[f"{name}.weight"] = t
@@ -60,7 +74,7 @@ def flax_to_state_dict(params: Dict[str, Any],
                 sd[f"{name}.bias"] = t
             else:
                 raise KeyError(f"unknown Flax leaf {name}/{key}")
-        if path and path[-1] == "bn" and s is not None:
+        if isinstance(s, dict) and "mean" in s:  # a BatchNorm's statistics
             name = ".".join(path)
             for k, tk in _STATS.items():
                 sd[f"{name}.{tk}"] = _to_tensor(s[k])
@@ -83,6 +97,8 @@ def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dic
         a = t.detach().float().cpu().numpy()
         if leaf in inv_stats:
             tree, key = stats, inv_stats[leaf]
+        elif leaf == "weight" and a.ndim == 4 and _is_deconv(path[-1]):
+            tree, key, a = params, "kernel", np.transpose(a, (2, 3, 0, 1))[::-1, ::-1]
         elif leaf == "weight" and a.ndim == 4:
             tree, key, a = params, "kernel", np.transpose(a, (2, 3, 1, 0))
         elif leaf == "weight":
@@ -117,6 +133,50 @@ def from_flax(params: Dict[str, Any], batch_stats: Optional[Dict[str, Any]] = No
     )
     model.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
     return model.eval()
+
+
+def hrnet_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                    heatmap_hw: Tuple[int, int] = (120, 160),
+                    dtype: torch.dtype = torch.float32) -> HRNetPose:
+    """Build the port's ``HRNetPose`` (eval mode, float32 parameters,
+    compute ``dtype``) from a Flax tree; the number of keypoints is read
+    from the tree."""
+    model = HRNetPose(
+        num_keypoints=int(np.shape(params["head"]["final"]["kernel"])[-1]),
+        heatmap_height=heatmap_hw[0], heatmap_width=heatmap_hw[1], dtype=dtype,
+    )
+    model.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
+    return model.eval()
+
+
+def init_hrnet_flax_like(seed: int, num_keypoints: int = 4) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats) with the Flax layout and names of the JAX
+    package's ``HRNetPose`` variables, drawn from a numpy seed.
+
+    The names and shapes are read off the port's module; conv and
+    transpose-conv kernels are LeCun-normal, BN scale, bias, mean and var
+    are moved off their init values (1, 0, 0, 1), the final conv's bias is
+    small and nonzero.
+    """
+    rng = np.random.default_rng(seed)
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name, t in HRNetPose(num_keypoints=num_keypoints).state_dict().items():
+        module, leaf = name.rsplit(".", 1)
+        shape = tuple(t.shape)
+        if leaf == "num_batches_tracked":
+            continue
+        if t.dim() == 4:
+            # fan-in: OIHW convs I*kh*kw; (in, out, kh, kw) transpose convs
+            # in*kh*kw over the stride's 4 phases
+            deconv = _is_deconv(module.rsplit(".", 1)[-1])
+            fan_in = shape[0] * shape[2] * shape[3] / 4 if deconv else int(np.prod(shape[1:]))
+            a = rng.standard_normal(shape) / np.sqrt(fan_in)
+        elif leaf in ("weight", "running_var"):
+            a = rng.uniform(0.8, 1.2, shape) if leaf == "weight" else rng.uniform(0.6, 1.4, shape)
+        else:  # BN bias and mean, the final conv's bias
+            a = 0.1 * rng.standard_normal(shape)
+        sd[name] = torch.from_numpy(a.astype(np.float32))
+    return state_dict_to_flax(sd)
 
 
 def init_flax_like(seed: int, num_classes: int = 2,

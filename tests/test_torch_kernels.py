@@ -12,7 +12,14 @@ import torch
 
 import jax.numpy as jnp
 
+from mtg_card_image_segmentation_tpu.data.preprocess import preprocess_batch as jax_preprocess
 from mtg_card_image_segmentation_tpu.ops.pallas import fused_mask_decode as jax_decode
+from mtg_card_image_segmentation_tpu.ops.pallas import (
+    fused_head_decode as jax_head_decode,
+    fused_normalize as jax_normalize,
+    fused_stem as jax_stem,
+    upsample2x_add as jax_upsample2x_add,
+)
 from mtg_card_image_segmentation_tpu.ops.pallas.decoder import (
     _interp_matrix as jax_interp_matrix,
 )
@@ -21,18 +28,28 @@ from mtg_card_image_segmentation_tpu.ops.pallas.fused_block import (
     fused_tail_chain as jax_chain,
 )
 from mtg_card_image_segmentation_tpu.ops.resize import bilinear_resize as jax_resize
+from mtg_card_image_segmentation_tpu.ops.resize import upsample_add as jax_upsample_add
 
 from mtg_card_image_segmentation_tpu_torch.models.layers import make_divisible
 from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.decoder import (
+    fused_head_decode,
+    fused_head_decode_plain,
     fused_mask_decode,
     fused_mask_decode_plain,
+    upsample2x_add,
+    upsample2x_add_plain,
 )
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import (
     BlockWeights,
     fused_inverted_residual,
     fused_tail_chain,
 )
+from mtg_card_image_segmentation_tpu_torch.ops.kernels.preprocess import (
+    fused_normalize,
+    fused_normalize_plain,
+)
+from mtg_card_image_segmentation_tpu_torch.ops.kernels.stem import fused_stem, fused_stem_plain
 from mtg_card_image_segmentation_tpu_torch.ops.resize import (
     _interp_matrix,
     _interp_taps,
@@ -207,3 +224,193 @@ def test_kernel_path_refuses_unsupported_device_or_dtype():
         fused_inverted_residual(meta, folded, 3, 2, "relu")
     with pytest.raises(ValueError):
         fused_mask_decode(torch.empty((1, 4, 4), device="meta"), 8, 8)
+
+
+# --------------------------------------------------------------------------
+# normalize, upsample2x_add, head decode, stem (shapes of tests/test_pallas.py)
+# --------------------------------------------------------------------------
+
+
+def test_fused_normalize_matches_jax_kernel_and_reference():
+    """float32: 1e-5 against the Pallas kernel (interpret) and against the
+    JAX package's preprocess_batch, its own bar (tests/test_pallas.py:22-29):
+    x*scale + shift and (x/255 - mean)/std round differently."""
+    img = np.random.default_rng(0).integers(0, 256, (2, 40, 30, 3), dtype=np.uint8)
+    ours = fused_normalize(torch.from_numpy(img))
+    assert ours.dtype == torch.float32 and tuple(ours.shape) == img.shape
+    kernel = np.asarray(jax_normalize(jnp.asarray(img), interpret=True))
+    ref = np.asarray(jax_preprocess(jnp.asarray(img), None, 40, 30, normalize=True))
+    np.testing.assert_allclose(ours.numpy(), kernel, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_normalize_bf16_output():
+    """bfloat16 out (tests/test_pallas.py:32-36): the dtype, and within one
+    bf16 ulp (2^-6 at |x| < 2.7) of the Pallas kernel's bf16 output."""
+    img = np.random.default_rng(1).integers(0, 256, (1, 8, 16, 3), dtype=np.uint8)
+    ours = fused_normalize(torch.from_numpy(img), out_dtype=torch.bfloat16)
+    theirs = jax_normalize(jnp.asarray(img), out_dtype=jnp.bfloat16, interpret=True)
+    assert ours.dtype == torch.bfloat16 and theirs.dtype == jnp.bfloat16
+    d = np.abs(ours.float().numpy() - np.asarray(theirs.astype(jnp.float32)))
+    assert d.max() <= 2.0 ** -6
+
+
+def test_upsample2x_add_matches_jax_kernel_and_reference():
+    """1e-5 against the Pallas kernel (interpret) and the JAX upsample_add
+    (tests/test_pallas.py:39-45); the output takes ``low``'s dtype."""
+    rng = np.random.default_rng(2)
+    high = rng.standard_normal((2, 20, 15, 128)).astype(np.float32)
+    low = rng.standard_normal((2, 40, 30, 128)).astype(np.float32)
+    ours = upsample2x_add(torch.from_numpy(high), torch.from_numpy(low))
+    assert ours.dtype == torch.float32
+    kernel = np.asarray(jax_upsample2x_add(jnp.asarray(high), jnp.asarray(low), interpret=True))
+    ref = np.asarray(jax_upsample_add(jnp.asarray(high), jnp.asarray(low)))
+    np.testing.assert_allclose(ours.numpy(), kernel, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-5, atol=1e-5)
+    ours16 = upsample2x_add(torch.from_numpy(high).bfloat16(), torch.from_numpy(low).bfloat16())
+    assert ours16.dtype == torch.bfloat16
+    # bf16 inputs and output: within the inputs' rounding, 3 * 2^-8 relative
+    np.testing.assert_allclose(ours16.float().numpy(), ref, rtol=0.02, atol=0.05)
+
+
+def test_fused_head_decode_matches_jax_kernel_and_composed_pipeline():
+    """Exact uint8 equality with the Pallas kernel (interpret) and with the
+    pipeline composed from independent pieces, the JAX package's own bar
+    (tests/test_pallas.py:68-90)."""
+    rng = np.random.default_rng(5)
+    b, h16, w16, c, cl = 2, 10, 8, 24, 12
+    h8, w8 = 2 * h16, 2 * w16
+    x = rng.standard_normal((b, h16, w16, c)).astype(np.float32)
+    gw = rng.standard_normal((b, c)).astype(np.float32)
+    low = rng.standard_normal((b, h8, w8, cl)).astype(np.float32)
+    w_lo = rng.standard_normal(cl).astype(np.float32)
+    ours = fused_head_decode(*(torch.from_numpy(a) for a in (x, gw, low, w_lo)),
+                             0.17, 160, 128)
+    assert ours.dtype == torch.uint8 and tuple(ours.shape) == (b, 160, 128)
+    kernel = np.asarray(jax_head_decode(jnp.asarray(x), jnp.asarray(gw), jnp.asarray(low),
+                                        jnp.asarray(w_lo), jnp.float32(0.17), 160, 128,
+                                        interpret=True))
+    hs = jnp.einsum("bhwc,bc->bhw", jnp.asarray(x), jnp.asarray(gw))
+    hs = jax_resize(hs[..., None], h8, w8)[..., 0]
+    score = hs + jnp.einsum("bhwc,c->bhw", jnp.asarray(low), jnp.asarray(w_lo)) + 0.17
+    ref = (np.asarray(jax_resize(score[..., None], 160, 128)[..., 0]) > 0).astype(np.uint8)
+    np.testing.assert_array_equal(ours.numpy(), kernel)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def _stem_case(n, h, w, seed, bias_scale=0.1, center=None):
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    kernel = (rng.standard_normal((3, 3, 3, 16)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((16,)) * bias_scale).astype(np.float32)
+    if center is None:
+        center = (255.0 * np.array([0.485, 0.456, 0.406])).astype(np.float32)
+    return imgs, kernel, bias, center
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (40, 24)])
+def test_fused_stem_matches_jax_kernel_and_conv(hw):
+    """float32 out, against the Pallas kernel (interpret) and against a
+    conv reference in bf16: rtol 0.02 / atol 1.0 / mean < 0.1, the JAX
+    package's own bars (tests/test_pallas.py:105-135): one bf16 ulp at the
+    activation magnitude (~160), from the bf16 centering and the order of
+    the sums."""
+    h, w = hw
+    imgs, kernel, bias, center = _stem_case(3, h, w, 5)
+    ours = fused_stem(*(torch.from_numpy(a) for a in (imgs, kernel, bias, center)),
+                      out_dtype=torch.float32)
+    assert ours.dtype == torch.float32 and tuple(ours.shape) == (3, h // 2, w // 2, 16)
+    theirs = np.asarray(jax_stem(jnp.asarray(imgs), jnp.asarray(kernel), jnp.asarray(bias),
+                                 jnp.asarray(center), out_dtype=jnp.float32, interpret=True))
+    x = torch.from_numpy(imgs).float() - torch.from_numpy(center)
+    y = torch.nn.functional.conv2d(
+        x.bfloat16().permute(0, 3, 1, 2), torch.from_numpy(kernel).bfloat16().permute(3, 2, 0, 1),
+        None, stride=2, padding=1) + torch.from_numpy(bias).bfloat16()[:, None, None]
+    yf = y.float().permute(0, 2, 3, 1)
+    conv_ref = (yf * (torch.clamp(yf + 3.0, 0.0, 6.0) / 6.0)).numpy()
+    for ref in (theirs, conv_ref):
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=0.02, atol=1.0)
+        assert float(np.abs(ours.numpy() - ref).mean()) < 0.1
+    out16 = fused_stem(*(torch.from_numpy(a) for a in (imgs, kernel, bias, center)))
+    assert out16.dtype == torch.bfloat16
+
+
+def test_fused_stem_batch_split_invariance():
+    """Each image's result does not depend on what else is in the batch
+    (tests/test_pallas.py:138-155): exact."""
+    imgs, kernel, bias, center = _stem_case(4, 32, 32, 6, bias_scale=0.0,
+                                            center=np.full((3,), 120.0, np.float32))
+    k, b, c = (torch.from_numpy(a) for a in (kernel, bias, center))
+    whole = fused_stem_plain(torch.from_numpy(imgs), k, b, c, torch.float32)
+    for bt in (1, 2):
+        parts = [fused_stem_plain(torch.from_numpy(imgs[i:i + bt]), k, b, c, torch.float32)
+                 for i in range(0, 4, bt)]
+        assert torch.equal(torch.cat(parts), whole)
+
+
+def test_new_wrappers_take_plain_version_on_cpu():
+    """CPU tensors go to the plain versions: equal results, no launch
+    counted."""
+    _build.reset_launches()
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.integers(0, 256, (1, 8, 8, 3), dtype=np.uint8))
+    assert torch.equal(fused_normalize(img, torch.bfloat16),
+                       fused_normalize_plain(img, torch.bfloat16))
+    high = torch.from_numpy(rng.standard_normal((1, 4, 4, 8)).astype(np.float32))
+    low = torch.from_numpy(rng.standard_normal((1, 8, 8, 8)).astype(np.float32))
+    assert torch.equal(upsample2x_add(high, low), upsample2x_add_plain(high, low))
+    gw = torch.from_numpy(rng.standard_normal((1, 8)).astype(np.float32))
+    w_lo = torch.from_numpy(rng.standard_normal(8).astype(np.float32))
+    assert torch.equal(fused_head_decode(high, gw, low, w_lo, 0.1, 32, 32),
+                       fused_head_decode_plain(high, gw, low, w_lo, 0.1, 32, 32))
+    imgs, kernel, bias, center = (torch.from_numpy(a) for a in _stem_case(1, 8, 8, 9))
+    assert torch.equal(fused_stem(imgs, kernel, bias, center),
+                       fused_stem_plain(imgs, kernel, bias, center))
+    assert _build.LAUNCHES == {}
+
+
+@pytest.mark.parametrize("case", ["normalize_dtype", "normalize_rank", "normalize_out",
+                                  "stem_dtype", "stem_size", "stem_kernel",
+                                  "head_shapes", "upsample_shapes"])
+def test_new_wrappers_reject_wrong_inputs(case):
+    """A wrong dtype, rank or shape raises; nothing is converted on the
+    quiet."""
+    img = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    kernel, bias, center = torch.zeros(3, 3, 3, 16), torch.zeros(16), torch.zeros(3)
+    with pytest.raises(ValueError):
+        if case == "normalize_dtype":
+            fused_normalize(img.float())
+        elif case == "normalize_rank":
+            fused_normalize(img[0])
+        elif case == "normalize_out":
+            fused_normalize(img, out_dtype=torch.float16)
+        elif case == "stem_dtype":
+            fused_stem(img.float(), kernel, bias, center)
+        elif case == "stem_size":
+            fused_stem(torch.zeros((1, 12, 8, 3), dtype=torch.uint8), kernel, bias, center)
+        elif case == "stem_kernel":
+            fused_stem(img, torch.zeros(3, 3, 3, 8), bias, center)
+        elif case == "head_shapes":
+            fused_head_decode(torch.zeros(1, 4, 4, 8), torch.zeros(1, 7), torch.zeros(1, 8, 8, 8),
+                              torch.zeros(8), 0.0, 32, 32)
+        else:
+            upsample2x_add(torch.zeros(1, 4, 4, 8), torch.zeros(1, 8, 7, 8))
+
+
+@pytest.mark.parametrize("case", ["normalize", "stem", "head_decode", "upsample"])
+def test_new_kernel_paths_refuse_other_devices(case):
+    """The kernel paths never fall back: a tensor that is neither a CPU nor
+    a CUDA tensor raises instead of running elsewhere."""
+    with pytest.raises(ValueError):
+        if case == "normalize":
+            fused_normalize(torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta"))
+        elif case == "stem":
+            fused_stem(torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta"),
+                       torch.zeros(3, 3, 3, 16), torch.zeros(16), torch.zeros(3))
+        elif case == "head_decode":
+            meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+            fused_head_decode(meta(1, 4, 4, 8), meta(1, 8), meta(1, 8, 8, 8), meta(8),
+                              0.0, 32, 32)
+        else:
+            upsample2x_add(torch.empty((1, 4, 4, 8), device="meta"),
+                           torch.empty((1, 8, 8, 8), device="meta"))

@@ -101,6 +101,65 @@ def test_bf16_kernel_path_agrees_with_reference_path(weights, images):
     assert a.mask_agreement(b, images) >= 0.99
 
 
+def test_fused_head_masks_equal_default_and_agree_with_jax(weights, images):
+    """fused_head=True on the CPU (the head decode's plain version), fp32:
+    masks equal to the default kernel path's (the same function, summed in
+    another order: no pixel of these images sits within rounding of 0), and
+    agreement >= 0.999 with the JAX reference path, the repo's deployment
+    gate."""
+    params, stats = weights
+    base = SegPredictor(params, stats, H, W, dtype=torch.float32, device="cpu").predict(images)
+    ours = SegPredictor(params, stats, H, W, dtype=torch.float32, device="cpu",
+                        fused_head=True).predict(images)
+    assert ours.dtype == torch.uint8 and tuple(ours.shape) == (B, H, W)
+    assert torch.equal(ours, base)
+    theirs = np.asarray(jax_pred.SegPredictor(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats), H, W,
+        use_pallas=False, dtype=jnp.float32, auto_layout=False).predict(images))
+    assert (ours.numpy() == theirs).mean() >= 0.999
+
+
+@pytest.mark.parametrize("fused_head", [False, True])
+def test_fused_stem_agrees_with_default_bf16(weights, images, fused_head):
+    """fused_stem=True (the stem kernel's plain version), bf16, alone and
+    with fused_head: agreement >= 0.99 with the default path, the repo's
+    floor for random-init weights; the stem centers in bf16 by design, so
+    its output differs from the stock stem's by up to a bf16 ulp."""
+    params, stats = weights
+    base = SegPredictor(params, stats, H, W, device="cpu")
+    ours = SegPredictor(params, stats, H, W, device="cpu", fused_stem=True,
+                        fused_head=fused_head)
+    assert ours.dtype == torch.bfloat16
+    assert ours.mask_agreement(base, images) >= 0.99
+
+
+def test_default_path_masks_unchanged(weights, images):
+    """The default path does not depend on the options' code: its masks
+    equal the composition it is made of (centering, _fused_backbone with
+    the tail chain, _head_score_s8, fused_mask_decode), called by hand, in
+    fp32 and in bf16."""
+    params, stats = weights
+    for dtype in (torch.float32, torch.bfloat16):
+        pred = SegPredictor(params, stats, H, W, dtype=dtype, device="cpu")
+        assert not pred.fused_head and not pred.fused_stem
+        with torch.inference_mode():
+            x = (torch.from_numpy(images).float() - pred._center).to(dtype)
+            taps = port_pred._fused_backbone(pred.model.backbone, x, pred._tail)
+            score = port_pred._head_score_s8(pred.model.head, taps["low"], taps["high"],
+                                             pred._head_vectors)
+            want = port_pred.fused_mask_decode(score, H, W)
+        assert torch.equal(pred.predict(images), want)
+
+
+def test_options_are_checked(weights):
+    """fused_stem needs sizes that are multiples of 8, and both options
+    belong to the kernel path."""
+    with pytest.raises(ValueError, match="multiples of 8"):
+        SegPredictor(*weights, 60, 48, device="cpu", fused_stem=True)
+    with pytest.raises(ValueError, match="use_kernels"):
+        SegPredictor(*weights, H, W, device="cpu", use_kernels=False, fused_head=True)
+
+
 def test_predictor_refuses_cpu_unless_asked(weights, monkeypatch):
     """No device means the card; without CUDA that raises instead of
     running on the host."""
