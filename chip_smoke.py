@@ -16,10 +16,26 @@ paths with random weights from a seed:
   its decode against the CPU decode of the same heatmaps;
 - ``SegPredictor(fused_head=True)``, ``SegPredictor(fused_stem=True)`` and
   both, at 512x512 b128, timed beside the default path and checked against
-  its masks.
+  its masks;
+- the serving modes at 512x512 b128 (``seg_modes``): int8 weights against the
+  bf16 predictor, slim (channel-pruned) widths against the masked dense model
+  and against their own stock-op path;
+- ``SegPredictor.predict`` at the server's default 320x240 (``seg_320x240``);
+- the HTTP server (``server``): checkpoints written with ``save_params``,
+  ``DemoServer`` started through ``from_checkpoint`` on 127.0.0.1, ``/healthz``,
+  ``POST /api/segment`` and ``POST /api/corners`` (HRNet, then a second server
+  with ``--pose-family yolo``) with PNG bodies, serially and from two threads
+  at once, every answer checked against the predictor called directly, and
+  that one-image call against the port's CPU predictor from the same
+  checkpoint (kernels 1-4 are also held against their plain versions at
+  these one-image shapes in the kernel phase);
+- ``YoloCornerPredictor.predict`` at 640x640 (``yolo_end_to_end``,
+  ``yolo_card_vs_cpu``);
+- ``tools/stencil_floor_torch.py`` (``stencil_tool``), the card's depthwise
+  stencil microbenchmark.
 
-Last it profiles a few b128 ``predict`` calls of each predictor: device time
-by kernel class and the card's idle share.
+It also profiles a few b128 ``predict`` calls of the three
+predictors: device time by kernel class and the card's idle share.
 
 Every phase prints one JSON line. Then come the kernels' summary line, the
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line, and
@@ -49,6 +65,15 @@ SEED = 0
 POSE_HW = (480, 640)        # the pose model's published operating point
 POSE_HEATMAP_HW = (120, 160)
 HEATMAP_TOL = (0.1, 0.01)   # max|d|, mean|d|: card vs CPU bf16 heatmaps of order 1
+SERVER_HW = (320, 240)      # the server's default segmentation size
+YOLO_SIZE = 640
+YOLO_LEVEL_TOL = (0.25, 0.02)  # max|d|, mean|d|: card vs CPU bf16 level outputs of order 5
+# stencil_floor against its plain version: outputs of order 5e-3 to 8e-2. Both
+# round y = x @ w_exp to bf16 from float32 sums taken in another order, so a y
+# within float32 rounding of a bf16 tie rounds the other way: one such flip at
+# |y| in [2, 4) moves `pass` by 2^-6/960 = 1.63e-5. The gate allows two in one
+# pixel, and holds the mean, which a wrong tap or shift would move, at 1e-6.
+STENCIL_TOL = (4e-5, 1e-6)
 
 
 def emit(obj) -> None:
@@ -191,7 +216,8 @@ def phase_kernels(torch, weights):
     def block_case(i, n, hw):
         blk = model.backbone.block(i)
         bw = fb.BlockWeights.from_flax(bb[f"block{i}"], blk.kernel, dev)
-        x = torch.from_numpy(rng.standard_normal((n, hw, hw, blk.in_features))
+        h, w = hw if isinstance(hw, tuple) else (hw, hw)
+        x = torch.from_numpy(rng.standard_normal((n, h, w, blk.in_features))
                              .astype(np.float32)).to(dev, torch.bfloat16)
         args = (bw, blk.kernel, blk.stride, blk.act, blk.residual, blk.dilation)
         return blk, bw, x, args
@@ -275,11 +301,170 @@ def phase_kernels(torch, weights):
           "max_abs_ref": float(want.float().abs().max()),
           "library_max_abs_err": lib_err, **rows["fused_tail_chain"]})
 
+    # -- slim widths: block 12 at 471 expanded channels and the slim chain
+    # (471/672/672, widened to 472 inside BlockWeights) on the kernels -------
+    from mtg_card_image_segmentation_tpu_torch.compression.slim import (
+        expansion_channel_prune,
+        slim_seg_state,
+    )
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+
+    pruned, _ = expansion_channel_prune(weights[0], 0.3)
+    slim_params, slim_stats, overrides = slim_seg_state(pruned, weights[1])
+    if overrides[12:] != (471, 672, 672):
+        fail(f"slim widths of the tail are {overrides[12:]}, want (471, 672, 672)")
+    sbb = fold_batch_norm(slim_params, slim_stats)["backbone"]
+    sblocks = [fb.BlockWeights.from_flax(sbb[f"block{i}"], 5, dev) for i in (12, 13, 14)]
+    _build.reset_launches()
+    got = fb.fused_inverted_residual(x, sblocks[0], 5, 1, "hardswish", False, 2)
+    want = fb.inverted_residual_plain(x, sblocks[0], 1, "hardswish", False, 2, torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    err = float((got.float() - want.float()).abs().max())
+    emit({"phase": "kernel", "name": "fused_inverted_residual", "block": 12,
+          "expanded": 471, "padded_to": sblocks[0].cexp, "shape": list(x.shape),
+          "max_abs_err": err, "launches": counts, "within_tol": err <= TOL})
+    if err > TOL or any(counts.get(n, 0) != 1 for n in fb.BLOCK_KERNELS):
+        fail(f"block 12 at width 471: max|d| {err} (gate {TOL}), launches {counts}")
+    _build.reset_launches()
+    got = fb.fused_tail_chain(x, sblocks, 5, "hardswish", 2)
+    want = fb.tail_chain_plain(x, sblocks, "hardswish", 2)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    err = float((got.float() - want.float()).abs().max())
+    emit({"phase": "kernel", "name": "fused_tail_chain", "widths": list(overrides[12:]),
+          "shape": list(x.shape), "max_abs_err": err, "launches": counts,
+          "ms": cuda_ms(lambda: fb.fused_tail_chain(x, sblocks, 5, "hardswish", 2), 20),
+          "within_tol": err <= TOL})
+    if err > TOL or any(counts.get(n, 0) != 3 for n in fb.BLOCK_KERNELS):
+        fail(f"slim chain: max|d| {err} (gate {TOL}), launches {counts}")
+
+    # -- the HTTP server's shapes: one image per request. At 320x240 the tail
+    # map is 20x15, so the GEMMs see M = 300 rows (not a multiple of their
+    # 16-row tile: the guarded last tile) and the depthwise an odd width; the
+    # decode goes (1,40,30) -> (1,320,240); the corners' normalize sees
+    # (1,480,640,3). Wrapper against plain, with the launches of each call ----
+    tail_hw = (SERVER_HW[0] // 16, SERVER_HW[1] // 16)
+    for i in (12, 13):
+        blk, bw, x1, (bw, k, st, act, res, dil) = block_case(i, 1, tail_hw)
+        _build.reset_launches()
+        got = fb.fused_inverted_residual(x1, bw, k, st, act, res, dil)
+        counts = dict(_build.LAUNCHES)
+        want = fb.inverted_residual_plain(x1, bw, st, act, res, dil, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        emit({"phase": "kernel", "name": "fused_inverted_residual", "block": i,
+              "path": "server", "shape": list(x1.shape), "gemm_rows": x1[..., 0].numel(),
+              "max_abs_err": err, "max_abs_ref": float(want.float().abs().max()),
+              "launches": counts, "within_tol": err <= TOL})
+        if err > TOL or counts != {n: 1 for n in fb.BLOCK_KERNELS}:
+            fail(f"block {i} at the server's shape {tuple(x1.shape)}: max|d| {err} "
+                 f"(gate {TOL}), launches {counts}")
+    x1 = torch.from_numpy(rng.standard_normal((1, *tail_hw, 112)).astype(np.float32)
+                          ).to(dev, torch.bfloat16)
+    _build.reset_launches()
+    got = fb.fused_tail_chain(x1, blocks, 5, "hardswish", 2)
+    counts = dict(_build.LAUNCHES)
+    want = fb.tail_chain_plain(x1, blocks, "hardswish", 2)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    emit({"phase": "kernel", "name": "fused_tail_chain", "path": "server",
+          "shape": list(x1.shape), "gemm_rows": x1[..., 0].numel(), "max_abs_err": err,
+          "max_abs_ref": float(want.float().abs().max()), "launches": counts,
+          "ms": cuda_ms(lambda: fb.fused_tail_chain(x1, blocks, 5, "hardswish", 2), 20),
+          "plain_ms": cuda_ms(lambda: fb.tail_chain_plain(x1, blocks, "hardswish", 2), 3),
+          "within_tol": err <= TOL})
+    if err > TOL or counts != {n: 3 for n in fb.BLOCK_KERNELS}:
+        fail(f"tail chain at the server's shape {tuple(x1.shape)}: max|d| {err} "
+             f"(gate {TOL}), launches {counts}")
+    sh, sw = SERVER_HW
+    s1 = torch.from_numpy(rng.standard_normal((1, sh // 8, sw // 8)).astype(np.float32)).to(dev)
+    _build.reset_launches()
+    got = dec.fused_mask_decode(s1, sh, sw)
+    counts = dict(_build.LAUNCHES)
+    want = dec.fused_mask_decode_plain(s1, sh, sw)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    emit({"phase": "kernel", "name": "fused_mask_decode", "path": "server",
+          "shape": list(s1.shape), "out": list(got.shape), "exact": mismatches == 0,
+          "foreground_fraction": float(got.float().mean()), "launches": counts,
+          "ms": cuda_ms(lambda: dec.fused_mask_decode(s1, sh, sw), 50),
+          "plain_ms": cuda_ms(lambda: dec.fused_mask_decode_plain(s1, sh, sw), 10)})
+    if mismatches or tuple(got.shape) != (1, sh, sw) or counts != {"fused_mask_decode": 1}:
+        fail(f"fused_mask_decode at the server's shape: {mismatches} pixels differ from "
+             f"its plain version, out {tuple(got.shape)}, launches {counts}")
+
     # free the tail-chain tensors before the large elementwise cases
-    del x, got, want, d, xc, blocks, mods, model
+    del x, x1, s1, got, want, d, xc, blocks, mods, model, sblocks
     torch.cuda.empty_cache()
+    rows["stencil_floor"] = phase_stencil_kernel(torch)
     rows.update(phase_io_kernels(torch, weights, rng))
     return rows
+
+
+def stencil_tool():
+    """tools/stencil_floor_torch.py as a module, loaded from its path."""
+    import importlib.util
+
+    name = "stencil_floor_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def phase_stencil_kernel(torch):
+    """stencil_floor in its three modes at the tool's shape against its
+    plain version, with each mode's time and bound; the kernels line reports
+    ``full``, the real stencil, beside the one stock composition of it."""
+    import torch.nn.functional as F
+
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import stencil_floor as sf
+
+    tool = stencil_tool()
+    x, w_exp, w_dw = tool.make_inputs(SEED, "cuda")
+    k, dil, cexp = tool.K, tool.DIL, tool.CEXP
+    per_mode = {}
+    for mode in sf.MODES:
+        got = sf.stencil_floor(x, w_exp, w_dw, mode, k, dil)
+        want = sf.stencil_floor_plain(x, w_exp, w_dw, mode, k, dil)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        err, mean_err = float(d.max()), float(d.mean())
+        bnd, by = sf.bound_ms(tuple(x.shape), cexp, mode, k)  # the same H100 peaks
+        per_mode[mode] = {
+            "max_abs_err": err, "mean_abs_err": mean_err,
+            "max_abs_ref": float(want.abs().max()),
+            "ms": cuda_ms(lambda: sf.stencil_floor(x, w_exp, w_dw, mode, k, dil), 20),
+            "plain_ms": cuda_ms(lambda: sf.stencil_floor_plain(x, w_exp, w_dw, mode, k, dil),
+                                2, 1),
+            "bound_ms": bnd, "bound_by": by}
+        if tuple(got.shape) != (*x.shape[:3], 1) or got.dtype != torch.float32:
+            fail(f"stencil_floor[{mode}] output {got.dtype} {tuple(got.shape)}")
+        if err > STENCIL_TOL[0] or mean_err > STENCIL_TOL[1]:
+            fail(f"stencil_floor[{mode}]: max|d| {err}, mean|d| {mean_err} above {STENCIL_TOL}")
+        del got, want, d
+    w_bf = w_exp.to(torch.bfloat16)
+    taps = w_dw.to(torch.bfloat16).reshape(k, k, cexp).permute(2, 0, 1)[:, None].contiguous()
+
+    def library():  # cuBLAS product, cuDNN dilated depthwise, mean
+        y = (x @ w_bf).permute(0, 3, 1, 2)
+        z = F.conv2d(y, taps, padding=(k - 1) // 2 * dil, dilation=dil, groups=cexp)
+        return z.float().mean(dim=1)
+
+    want = sf.stencil_floor_plain(x, w_exp, w_dw, "full", k, dil)
+    lib_err = float((library()[..., None] - want).abs().max())
+    full = per_mode["full"]
+    row = {"ms": full["ms"], "plain_ms": full["plain_ms"], "library_ms": cuda_ms(library, 10),
+           "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+           "max_abs_err": max(m["max_abs_err"] for m in per_mode.values())}
+    emit({"phase": "kernel", "name": "stencil_floor", "shape": list(x.shape),
+          "expanded": cexp, "k": k, "dilation": dil, "modes": per_mode,
+          "full_minus_pass_ms": full["ms"] - per_mode["pass"]["ms"],
+          "arith_minus_pass_ms": per_mode["arith"]["ms"] - per_mode["pass"]["ms"],
+          "library_max_abs_err": lib_err, "tolerance": list(STENCIL_TOL), **row})
+    return row
 
 
 def phase_io_kernels(torch, weights, rng):
@@ -290,6 +475,7 @@ def phase_io_kernels(torch, weights, rng):
     import torch.nn.functional as F
 
     from mtg_card_image_segmentation_tpu_torch.models.layers import nchw, nhwc
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
     from mtg_card_image_segmentation_tpu_torch.ops.kernels import decoder as dec
     from mtg_card_image_segmentation_tpu_torch.ops.kernels import preprocess as pre
     from mtg_card_image_segmentation_tpu_torch.ops.kernels import stem as stem_k
@@ -324,7 +510,22 @@ def phase_io_kernels(torch, weights, rng):
     emit({"phase": "kernel", "name": "fused_normalize", "shape": list(imgs.shape),
           "out": "bfloat16 (timed) and float32", "exact": True, "launches": count,
           **rows["fused_normalize"]})
-    del imgs
+    # the server's shape: one 480x640 image per /api/corners request
+    one = imgs[:1].contiguous()
+    for dt in (torch.float32, bf16):
+        _build.reset_launches()
+        got = pre.fused_normalize(one, dt)
+        counts = dict(_build.LAUNCHES)
+        want = pre.fused_normalize_plain(one, dt)
+        torch.cuda.synchronize()
+        if got.dtype != dt or not torch.equal(got, want) or counts != {"fused_normalize": 1}:
+            fail(f"fused_normalize ({dt}) at the server's shape {tuple(one.shape)}: "
+                 f"{int((got != want).sum())} values differ, launches {counts}")
+    emit({"phase": "kernel", "name": "fused_normalize", "path": "server",
+          "shape": list(one.shape), "out": "bfloat16 (timed) and float32", "exact": True,
+          "launches": counts, "ms": cuda_ms(lambda: pre.fused_normalize(one, bf16), 50),
+          "plain_ms": cuda_ms(lambda: pre.fused_normalize_plain(one, bf16), 10)})
+    del imgs, one, got, want
     torch.cuda.empty_cache()
 
     # -- fused_stem: (128, 512, 512, 3) with the predictor's folded weights --
@@ -654,11 +855,440 @@ def phase_seg_options(torch, weights, default, imgs, card):
     return total
 
 
+def _time_predict(torch, pred, imgs, calls: int = 5):
+    """(ms per call, peak bytes, launch counts of ONE further call) of
+    ``pred.predict(imgs)``: host clock around ``calls`` calls that end in a
+    synchronize, after one warm-up call."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+
+    pred.predict(imgs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pred.predict(imgs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    peak = torch.cuda.max_memory_allocated()
+    _build.reset_launches()
+    pred.predict(imgs)
+    torch.cuda.synchronize()
+    return ms, peak, dict(_build.LAUNCHES)
+
+
+def _check_seg_launches(name: str, counts: dict) -> None:
+    """One ``predict`` of the default kernel path: 3 tail blocks x 4 block
+    kernels and one mask decode."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import BLOCK_KERNELS
+
+    want = {n: 3 for n in BLOCK_KERNELS}
+    want["fused_mask_decode"] = 1
+    if counts != want:
+        fail(f"{name}: launches per predict {counts}, want {want}")
+
+
+def phase_seg_modes(torch, weights, base, imgs, card):
+    """The serving modes at 512x512 b128 on the card: int8 weights against
+    the bf16 predictor ``base``; slim widths on the kernel path against the
+    masked dense model on the kernel path and against their own stock-op
+    path."""
+    from mtg_card_image_segmentation_tpu_torch.compression.slim import (
+        expansion_channel_prune,
+        param_count,
+        slim_seg_state,
+        tree_map,
+    )
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+
+    params, stats = weights
+    base_masks = base.predict(imgs)
+    base_ms, base_peak, _ = _time_predict(torch, base, imgs)
+
+    q = SegPredictor(params, stats, SIZE, SIZE, quantize="int8")
+    leaves = []
+    tree_map(leaves.append, q._qparams)
+    int8_bytes = sum(t.numel() for t in leaves if t.dtype == torch.int8)
+    if not int8_bytes or any(t.device.type != "cuda" for t in leaves):
+        fail("int8 predictor holds no int8 kernels on the card")
+    ms, peak, counts = _time_predict(torch, q, imgs)
+    _check_seg_launches("int8", counts)
+    agree = float((q.predict(imgs) == base_masks).float().mean())
+    emit({"phase": "seg_modes", "mode": "int8", "batch": imgs.shape[0], "size": SIZE,
+          "ms_per_batch": ms, "bf16_ms_per_batch": base_ms, "peak_mem_bytes": peak,
+          "bf16_peak_mem_bytes": base_peak, "int8_kernel_bytes": int8_bytes,
+          "launches_per_predict": counts, "agreement_vs_bf16": agree,
+          "agreement_floor": 0.99, "meets_0.999": agree >= 0.999,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if agree < 0.99:
+        fail(f"int8 vs bf16 agreement {agree} < 0.99")
+    del q
+
+    pruned, _ = expansion_channel_prune(params, 0.3)
+    sp, ss, overrides = slim_seg_state(pruned, stats)
+    slim_pred = SegPredictor(sp, ss, SIZE, SIZE)
+    masked = SegPredictor(pruned, stats, SIZE, SIZE)
+    slim_ref = SegPredictor(sp, ss, SIZE, SIZE, use_kernels=False)
+    ms, peak, counts = _time_predict(torch, slim_pred, imgs)
+    _check_seg_launches("slim", counts)
+    masked_ms, _, _ = _time_predict(torch, masked, imgs)
+    ref_ms, _, _ = _time_predict(torch, slim_ref, imgs)
+    slim_masks = slim_pred.predict(imgs)
+    vs_masked = float((slim_masks == masked.predict(imgs)).float().mean())
+    vs_ref = float((slim_masks == slim_ref.predict(imgs)).float().mean())
+    emit({"phase": "seg_modes", "mode": "slim", "amount": 0.3, "batch": imgs.shape[0],
+          "size": SIZE, "tail_widths": list(overrides[12:]),
+          "params": param_count(sp), "dense_params": param_count(params),
+          "ms_per_batch": ms, "masked_dense_ms_per_batch": masked_ms,
+          "use_kernels_false_ms_per_batch": ref_ms, "peak_mem_bytes": peak,
+          "launches_per_predict": counts, "agreement_vs_masked_dense": vs_masked,
+          "agreement_vs_use_kernels_false": vs_ref,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if vs_masked < 0.999:
+        fail(f"slim vs masked dense on the kernel path {vs_masked} < 0.999")
+    if vs_ref < 0.99:
+        fail(f"slim kernel path vs its use_kernels=False {vs_ref} < 0.99")
+
+
+def phase_seg_320x240(torch, weights, card):
+    """SegPredictor.predict at the server's default 320x240, b128, against
+    the port's CPU path on 4 images."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+
+    h, w = SERVER_HW
+    b = BATCHES[-1]
+    pred = SegPredictor(*weights, h, w)
+    imgs = np.random.default_rng(SEED + 320).integers(0, 256, (b, h, w, 3), np.uint8)
+    dev_imgs = torch.from_numpy(imgs).cuda()
+    ms, peak, counts = _time_predict(torch, pred, dev_imgs)
+    _check_seg_launches("seg_320x240", counts)
+    masks = pred.predict(dev_imgs)
+    if masks.dtype != torch.uint8 or tuple(masks.shape) != (b, h, w) or int(masks.max()) > 1:
+        fail(f"320x240 masks {masks.dtype} {tuple(masks.shape)}")
+    cpu = SegPredictor(*weights, h, w, device="cpu")
+    t0 = time.perf_counter()
+    agree = pred.mask_agreement(cpu, imgs[:4])
+    emit({"phase": "seg_320x240", "batch": b, "size": [h, w], "ms_per_batch": ms,
+          "img_per_s": b * 1e3 / ms, "peak_mem_bytes": peak, "launches_per_predict": counts,
+          "foreground_fraction": float(masks.float().mean()),
+          "card_vs_cpu_agreement": agree, "card_vs_cpu_images": 4,
+          "card_vs_cpu_seconds": time.perf_counter() - t0,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if agree < 0.999:
+        fail(f"320x240 card kernel path vs CPU plain path agreement {agree} < 0.999")
+
+
+def _post(port: int, path: str, body: bytes):
+    """(status, parsed JSON, wall ms) of one POST to the local server."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, body=body, headers={"Content-Length": str(len(body))})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return resp.status, json.loads(data), (time.perf_counter() - t0) * 1e3
+
+
+def phase_server(torch, weights, pose_weights, yolo_weights, card):
+    """The HTTP server on the card, started as a user starts it (checkpoints
+    on disk, ``from_checkpoint``, the default sizes), asked over HTTP, every
+    answer held against the predictor called directly, and that call (the
+    kernel path at one image) against the CPU predictor (the plain path)
+    loaded from the same checkpoint."""
+    import base64
+    import http.client
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import BLOCK_KERNELS
+    from mtg_card_image_segmentation_tpu_torch.serving import imagecodec
+    from mtg_card_image_segmentation_tpu_torch.serving.pose_predictor import (
+        PosePredictor,
+        YoloCornerPredictor,
+    )
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+    from mtg_card_image_segmentation_tpu_torch.serving.server import DemoServer
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import save_params
+
+    rng = np.random.default_rng(SEED + 7)
+    # bodies of other sizes than either model's
+    images = [rng.integers(0, 256, (360 + 24 * i, 270 + 18 * i, 3), np.uint8) for i in range(8)]
+    bodies = [imagecodec.encode_png(im) for im in images]
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        save_params(root, "seg", *weights)
+        save_params(root, "pose", *pose_weights)
+        save_params(root, "yolo", *yolo_weights)
+        t0 = time.perf_counter()
+        srv = DemoServer(root, root, port=0, checkpoint=f"{root}/seg",
+                         pose_checkpoint=f"{root}/pose", host="127.0.0.1")
+        start_s = time.perf_counter() - t0
+        srv.start_background()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            health = json.loads(resp.read())
+            conn.close()
+            if resp.status != 200 or not health.get("tpu_inference") \
+                    or health.get("model_hw") != list(SERVER_HW):
+                fail(f"/healthz: {resp.status} {health}")
+            if srv.predictor.device.type != "cuda" or srv.pose_predictor.device.type != "cuda":
+                fail("the server's predictors are not on the card")
+
+            answers = {}
+            _build.reset_launches()
+            for i in range(4):  # one request at a time
+                answers[("/api/segment", i)] = _post(srv.port, "/api/segment", bodies[i])
+                answers[("/api/corners", i)] = _post(srv.port, "/api/corners", bodies[i])
+
+            def client(path):  # two clients at once, four requests each
+                for i in range(4, 8):
+                    answers[(path, i)] = _post(srv.port, path, bodies[i])
+
+            threads = [threading.Thread(target=client, args=(p,))
+                       for p in ("/api/segment", "/api/corners")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in threads) or len(answers) != 16:
+                fail(f"concurrent clients did not finish: {len(answers)} answers")
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            want = {n: 3 * 8 for n in BLOCK_KERNELS}
+            want.update({"fused_mask_decode": 8, "fused_normalize": 8})
+            if launches != want:
+                fail(f"server path launches {launches}, want {want}")
+
+            bad_status, bad, _ = _post(srv.port, "/api/segment", b"not an image")
+            if bad_status != 400 or "error" not in bad:
+                fail(f"undecodable body answered {bad_status} {bad}")
+
+            # every answer against the predictor called directly, and the
+            # direct call (the kernels at the server's one-image shapes)
+            # against the port's CPU predictor from the same checkpoint: the
+            # plain versions, stock ops only
+            codec, sh, sw = srv.codec, *srv.model_hw
+            ph, pw = srv.pose_hw
+            cpu_seg = SegPredictor.from_checkpoint(root, "seg", sh, sw, device="cpu")
+            cpu_pose = PosePredictor.from_checkpoint(root, "pose", ph, pw, device="cpu")
+            worst_px, fractions = 0.0, []
+            mask_vs_cpu, hm_vs_cpu, decode_vs_cpu = [], [0.0, 0.0], [0.0, 0.0]
+            for i, im in enumerate(images):
+                status, body, _ = answers[("/api/segment", i)]
+                if status != 200 or body.get("shape") != [sh, sw]:
+                    fail(f"/api/segment {i}: {status} {body}")
+                mask = imagecodec.decode_png(base64.b64decode(body["mask_png_b64"]))[:, :, 0]
+                direct = srv.predictor.predict(codec.resize(im, sh, sw)[None])[0].cpu().numpy()
+                if mask.shape != (sh, sw) or not np.array_equal(mask, direct * 255):
+                    fail(f"/api/segment {i}: mask differs from predict on "
+                         f"{int((mask != direct * 255).sum())} pixels")
+                if abs(body["card_fraction"] - float(direct.mean())) > 1e-9:
+                    fail(f"/api/segment {i}: card_fraction {body['card_fraction']}")
+                fractions.append(body["card_fraction"])
+                on_cpu = cpu_seg.predict(codec.resize(im, sh, sw)[None])[0].numpy()
+                mask_vs_cpu.append(float((direct == on_cpu).mean()))
+                if mask_vs_cpu[-1] < 0.999:
+                    fail(f"/api/segment {i}: the card's mask agrees with the CPU predictor's "
+                         f"on {mask_vs_cpu[-1]} of the pixels, below 0.999")
+                status, body, _ = answers[("/api/corners", i)]
+                if status != 200 or body.get("image_shape") != list(im.shape[:2]):
+                    fail(f"/api/corners {i}: {status} {body}")
+                px, conf, valid = srv.pose_predictor.predict_valid(codec.resize(im, ph, pw)[None])
+                px = srv.pose_predictor.scale_to_original(px[0].cpu().numpy(), im.shape[:2])
+                d = float(np.abs(np.asarray(body["corners"]) - px).max())
+                worst_px = max(worst_px, d)
+                # the JSON rounds to 0.01 px: 0.005 of rounding + 1e-3
+                if d > 6e-3 or body["valid"] != [bool(v) for v in valid[0].cpu()]:
+                    fail(f"/api/corners {i}: differs from predict_valid by {d} px")
+                # random weights give flat heatmaps, so (as in pose_card_vs_cpu)
+                # the heatmaps are held, and the decode apart on equal heatmaps
+                resized = codec.resize(im, ph, pw)[None]
+                hm_card = srv.pose_predictor.heatmaps(resized)
+                dh = (hm_card.cpu() - cpu_pose.heatmaps(resized)).abs()
+                hm_vs_cpu = [max(hm_vs_cpu[0], float(dh.max())),
+                             max(hm_vs_cpu[1], float(dh.mean()))]
+                px_card, conf_card = srv.pose_predictor.decode(hm_card)
+                px_cpu, conf_cpu = cpu_pose.decode(hm_card.cpu())
+                decode_vs_cpu = [max(decode_vs_cpu[0], float((px_card.cpu() - px_cpu).abs().max())),
+                                 max(decode_vs_cpu[1],
+                                     float((conf_card.cpu() - conf_cpu).abs().max()))]
+                if float(dh.max()) > HEATMAP_TOL[0] or float(dh.mean()) > HEATMAP_TOL[1]:
+                    fail(f"/api/corners {i}: card vs CPU heatmaps max|d| {float(dh.max())}, "
+                         f"mean|d| {float(dh.mean())} above {HEATMAP_TOL}")
+                if decode_vs_cpu[0] > 1e-3 or decode_vs_cpu[1] > 1e-6:
+                    fail(f"/api/corners {i}: card vs CPU decode of the same heatmaps "
+                         f"{decode_vs_cpu}")
+            stats = {}
+            for path in ("/api/segment", "/api/corners"):
+                serial = [answers[(path, i)] for i in range(4)]
+                both = [answers[(path, i)] for i in range(4, 8)]
+                inf = [a[1]["inference_ms"] for a in serial + both]
+                stats[path] = {
+                    "inference_ms_median": statistics.median(inf),
+                    "inference_ms_min": min(inf), "inference_ms_max": max(inf),
+                    "serial_inference_ms": [a[1]["inference_ms"] for a in serial],
+                    "concurrent_inference_ms": [a[1]["inference_ms"] for a in both],
+                    "serial_wall_ms_per_request": statistics.mean(a[2] for a in serial),
+                    "concurrent_wall_ms_per_request": statistics.mean(a[2] for a in both)}
+        finally:
+            srv.shutdown()
+        emit({"phase": "server", "image_codec": srv.codec.name, "seg_size": list(srv.model_hw),
+              "pose_size": list(srv.pose_hw), "pose_family": "hrnet",
+              "start_seconds": start_s, "warm_seconds": srv.warm_seconds,
+              "requests": 16, "launches": launches, "masks_equal_direct_predict": True,
+              "corners_max_abs_err_px": worst_px, "card_fractions": fractions,
+              "mask_agreement_card_vs_cpu_min": min(mask_vs_cpu),
+              "mask_agreement_card_vs_cpu": mask_vs_cpu,
+              "heatmap_card_vs_cpu_max_abs_err": hm_vs_cpu[0],
+              "heatmap_card_vs_cpu_mean_abs_err": hm_vs_cpu[1],
+              "decode_card_vs_cpu_max_abs_err_px": decode_vs_cpu[0],
+              "decode_card_vs_cpu_max_abs_err_conf": decode_vs_cpu[1],
+              "bad_body_status": bad_status, **{k.rsplit("/", 1)[1]: v for k, v in stats.items()},
+              "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+
+        # the same server with --pose-family yolo (square input, the larger
+        # side), and with the zlib codec, so that both codecs run here
+        t0 = time.perf_counter()
+        srv = DemoServer(root, root, port=0, pose_checkpoint=f"{root}/yolo",
+                         pose_family="yolo", host="127.0.0.1",
+                         codec=imagecodec.ZlibCodec())
+        start_s = time.perf_counter() - t0
+        srv.start_background()
+        try:
+            if srv.pose_hw != (YOLO_SIZE, YOLO_SIZE) or srv.pose_predictor.device.type != "cuda":
+                fail(f"yolo server: size {srv.pose_hw}, device {srv.pose_predictor.device}")
+            worst_px, inf, lv_vs_cpu = 0.0, [], [0.0, 0.0]
+            cpu_yolo = YoloCornerPredictor.from_checkpoint(root, "yolo", imgsz=YOLO_SIZE,
+                                                           device="cpu")
+            for i in range(4):
+                status, body, _ = _post(srv.port, "/api/corners", bodies[i])
+                if status != 200 or len(body.get("corners", [])) != 4:
+                    fail(f"yolo /api/corners {i}: {status} {body}")
+                im = images[i]
+                px, conf, valid = srv.pose_predictor.predict_valid(
+                    srv.codec.resize(im, YOLO_SIZE, YOLO_SIZE)[None])
+                px = srv.pose_predictor.scale_to_original(px[0].cpu().numpy(), im.shape[:2])
+                d = float(np.abs(np.asarray(body["corners"]) - px).max())
+                worst_px = max(worst_px, d)
+                if d > 6e-3:
+                    fail(f"yolo /api/corners {i}: differs from predict_valid by {d} px")
+                inf.append(body["inference_ms"])
+                if i < 2:  # the one-image level outputs against the CPU predictor's
+                    resized = srv.codec.resize(im, YOLO_SIZE, YOLO_SIZE)[None]
+                    for a, c in zip(srv.pose_predictor.levels(resized), cpu_yolo.levels(resized)):
+                        dl = (a.cpu() - c).abs()
+                        lv_vs_cpu = [max(lv_vs_cpu[0], float(dl.max())),
+                                     max(lv_vs_cpu[1], float(dl.mean()))]
+                    if lv_vs_cpu[0] > YOLO_LEVEL_TOL[0] or lv_vs_cpu[1] > YOLO_LEVEL_TOL[1]:
+                        fail(f"yolo /api/corners {i}: card vs CPU level outputs {lv_vs_cpu} "
+                             f"above {YOLO_LEVEL_TOL}")
+            status, body, _ = _post(srv.port, "/api/segment", bodies[0])
+            if status != 503:
+                fail(f"/api/segment without a checkpoint answered {status}")
+        finally:
+            srv.shutdown()
+        emit({"phase": "server", "image_codec": srv.codec.name, "pose_family": "yolo",
+              "pose_size": list(srv.pose_hw), "start_seconds": start_s,
+              "warm_seconds": srv.warm_seconds, "requests": 4,
+              "corners_max_abs_err_px": worst_px, "inference_ms": inf,
+              "levels_card_vs_cpu_max_abs_err": lv_vs_cpu[0],
+              "levels_card_vs_cpu_mean_abs_err": lv_vs_cpu[1],
+              "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    return launches
+
+
+def phase_yolo(torch, yolo_weights, card):
+    """YoloCornerPredictor.predict at 640x640, b32 and b128; the card's bf16
+    level outputs against the port's CPU path, and the card's decode against
+    the CPU decode of the same level outputs (random weights give near-flat
+    confidences, so the decode is not compared across devices from images)."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.serving.pose_predictor import YoloCornerPredictor
+
+    s = YOLO_SIZE
+    pred = YoloCornerPredictor(*yolo_weights, imgsz=s)
+    for b in BATCHES:
+        imgs = np.random.default_rng(SEED + 2000 + b).integers(0, 256, (b, s, s, 3), np.uint8)
+        dev_imgs = torch.from_numpy(imgs).cuda()
+        ms, peak, _ = _time_predict(torch, pred, dev_imgs)
+        px, conf = pred.predict(dev_imgs)
+        if (px.dtype, conf.dtype) != (torch.float32, torch.float32) \
+                or tuple(px.shape) != (b, 4, 2) or tuple(conf.shape) != (b, 4):
+            fail(f"yolo outputs {px.dtype} {tuple(px.shape)}, {conf.dtype} {tuple(conf.shape)}")
+        if not (bool(torch.isfinite(px).all()) and bool(torch.isfinite(conf).all())):
+            fail("yolo outputs are not finite")
+        emit({"phase": "yolo_end_to_end", "batch": b, "size": [s, s], "ms_per_batch": ms,
+              "img_per_s": b * 1e3 / ms, "peak_mem_bytes": peak,
+              "mean_conf": float(conf.mean()),
+              "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+        if b == BATCHES[-1]:
+            phase_profile(torch, pred, dev_imgs, card)
+        del dev_imgs, px, conf
+        torch.cuda.empty_cache()
+
+    imgs = np.random.default_rng(SEED + 2000).integers(0, 256, (2, s, s, 3), np.uint8)
+    cpu = YoloCornerPredictor(*yolo_weights, imgsz=s, device="cpu")
+    t0 = time.perf_counter()
+    lv_card = pred.levels(imgs)
+    lv_cpu = cpu.levels(imgs)
+    per_level = []
+    for a, c in zip(lv_card, lv_cpu):
+        d = (a.cpu() - c).abs()
+        per_level.append({"shape": list(a.shape), "max_abs": float(c.abs().max()),
+                          "max_abs_err": float(d.max()), "mean_abs_err": float(d.mean())})
+    px_card, conf_card = pred.decode(lv_card)
+    px_cpu, conf_cpu = cpu.decode([a.cpu() for a in lv_card])
+    d_px = float((px_card.cpu() - px_cpu).abs().max())
+    d_conf = float((conf_card.cpu() - conf_cpu).abs().max())
+    emit({"phase": "yolo_card_vs_cpu", "images": 2, "levels": per_level,
+          "tolerance": list(YOLO_LEVEL_TOL), "decode_max_abs_err_px": d_px,
+          "decode_max_abs_err_conf": d_conf, "seconds": time.perf_counter() - t0})
+    want_shapes = [(2, s // st, s // st, 77) for st in (8, 16, 32)]
+    if [tuple(a.shape) for a in lv_card] != want_shapes:
+        fail(f"yolo level outputs {[tuple(a.shape) for a in lv_card]}")
+    for lv in per_level:
+        if lv["max_abs_err"] > YOLO_LEVEL_TOL[0] or lv["mean_abs_err"] > YOLO_LEVEL_TOL[1]:
+            fail(f"yolo card vs CPU level outputs {lv} above {YOLO_LEVEL_TOL}")
+    if d_px > 1e-3 or d_conf > 1e-6:
+        fail(f"yolo card vs CPU decode of the same level outputs: {d_px} px, {d_conf} conf")
+
+
+def phase_stencil_tool(torch, card):
+    """tools/stencil_floor_torch.py's own run (its ``run``, what its
+    ``main`` prints), with the launch count of that run."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+
+    tool = stencil_tool()
+    _build.reset_launches()
+    r = tool.run(iters=20, seed=SEED)
+    n = _build.LAUNCHES.get("stencil_floor", 0)
+    if n <= 0:
+        fail("the stencil tool launched no stencil_floor kernel")
+    if not (r["ms"]["pass"] < r["ms"]["arith"] <= r["ms"]["full"] * 1.05):
+        fail(f"stencil tool times out of order: {r['ms']}")
+    emit({"phase": "stencil_tool", "launches": n, **r})
+    return n
+
+
 # profiled kernel-name fragments -> class, first match wins
 PROFILE_CLASSES = (
+    ("softmax (area attention, DFL)", ("softmax",)),
     ("tail chain: expand/project GEMM (pw_gemm_kernel)", ("pw_gemm_kernel",)),
     ("tail chain: depthwise + SE sums (depthwise_kernel)", ("depthwise_kernel",)),
     ("tail chain: SE gate (se_gate_kernel)", ("se_gate_kernel",)),
+    ("stencil floor (stencil_floor_kernel)", ("stencil_floor_kernel",)),
     ("mask decode (mask_decode_kernel)", ("mask_decode_kernel",)),
     ("normalize (normalize_kernel)", ("normalize_kernel",)),
     ("stem (stem_kernel)", ("stem_kernel",)),
@@ -741,6 +1371,7 @@ def main() -> int:
     from mtg_card_image_segmentation_tpu_torch.utils.params import (
         init_flax_like,
         init_hrnet_flax_like,
+        init_yolo_flax_like,
     )
 
     t_start = time.perf_counter()
@@ -751,38 +1382,58 @@ def main() -> int:
     launches, pred, imgs = phase_end_to_end(torch, weights, card)
     phase_profile(torch, pred, imgs, card)
     option_launches = phase_seg_options(torch, weights, pred, imgs, card)
+    phase_seg_modes(torch, weights, pred, imgs, card)
     del pred, imgs
     torch.cuda.empty_cache()
-    pose_launches, pose_pred, pose_imgs = phase_pose_end_to_end(
-        torch, init_hrnet_flax_like(SEED), card)
+    phase_seg_320x240(torch, weights, card)
+    pose_weights = init_hrnet_flax_like(SEED)
+    pose_launches, pose_pred, pose_imgs = phase_pose_end_to_end(torch, pose_weights, card)
     phase_profile(torch, pose_pred, pose_imgs, card)
+    del pose_pred, pose_imgs
+    torch.cuda.empty_cache()
+    yolo_weights = init_yolo_flax_like(SEED)
+    phase_yolo(torch, yolo_weights, card)
+    server_launches = phase_server(torch, weights, pose_weights, yolo_weights, card)
+    stencil_launches = phase_stencil_tool(torch, card)
 
     # per kernel: source, the TPU kernel it replaces, and its launches on
-    # the main path that runs it (upsample2x_add has no caller in the
-    # package: its launches are those of the kernel phase's timed run)
+    # each main path that runs it, every path zeroed before and read after
+    # its own run: the predictors' b128 runs and the server's 16 requests for
+    # kernels 1-4, the option predictors for 5-6, the stencil tool's run for
+    # 8 (upsample2x_add has no caller in the package: its launches are those
+    # of the kernel phase's timed run). ``launches`` is their sum.
     src, ref = f"{PKG}/csrc", "mtg_card_image_segmentation_tpu/ops/pallas"
+    blocks_by_path = {"seg_predict_b128": sum(launches[n] for n in BLOCK_KERNELS),
+                      "server": sum(server_launches[n] for n in BLOCK_KERNELS)}
     meta = {
         "fused_mask_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:190",
-                              launches["fused_mask_decode"]),
+                              {"seg_predict_b128": launches["fused_mask_decode"],
+                               "server": server_launches["fused_mask_decode"]}),
         "fused_inverted_residual": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:515",
-                                    sum(launches[n] for n in BLOCK_KERNELS)),
+                                    blocks_by_path),
         "fused_tail_chain": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:393",
-                             sum(launches[n] for n in BLOCK_KERNELS)),
+                             blocks_by_path),
         "fused_normalize": (f"{src}/preprocess.cu", f"{ref}/preprocess.py:37",
-                            pose_launches["fused_normalize"]),
-        "fused_stem": (f"{src}/stem.cu", f"{ref}/stem.py:186", option_launches["fused_stem"]),
+                            {"pose_predict_b128": pose_launches["fused_normalize"],
+                             "server": server_launches["fused_normalize"]}),
+        "fused_stem": (f"{src}/stem.cu", f"{ref}/stem.py:186",
+                       {"seg_options": option_launches["fused_stem"]}),
         "fused_head_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:122",
-                              option_launches["fused_head_decode"]),
+                              {"seg_options": option_launches["fused_head_decode"]}),
         "upsample2x_add": (f"{src}/decoder.cu", f"{ref}/decoder.py:58",
-                           rows["upsample2x_add"]["launches"]),
+                           {"kernel_phase": rows["upsample2x_add"]["launches"]}),
+        "stencil_floor": (f"{src}/stencil_floor.cu", "tools/vpu_stencil_floor.py:84",
+                          {"stencil_tool": stencil_launches}),
     }
     kernels = []
-    for name, (source, replaces, n) in meta.items():
+    for name, (source, replaces, by_path) in meta.items():
         r = rows[name]
-        if n <= 0:
-            fail(f"{name} was launched no time on its path")
+        idle = [path for path, n in by_path.items() if n <= 0]
+        if idle:
+            fail(f"{name} was launched no time on {idle}: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": n,
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -48,7 +48,7 @@ def hard_swish(x: torch.Tensor) -> torch.Tensor:
 
 # hardswish as torch's one fused op: x * min(max(x + 3, 0), 6) / 6, the
 # arithmetic of the TPU kernel's _act and of the CUDA kernels
-ACTIVATIONS = {"relu": torch.relu, "hardswish": F.hardswish}
+ACTIVATIONS = {"relu": torch.relu, "hardswish": F.hardswish, "silu": F.silu}
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:

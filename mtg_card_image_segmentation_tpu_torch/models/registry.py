@@ -1,5 +1,6 @@
 """Model factory (counterpart of the JAX package's ``models/registry.py``).
-The port registers the segmentation model and the HRNet corner-pose model."""
+The port registers the segmentation model and the two corner-pose models
+(HRNet heatmaps, YOLO12n-pose)."""
 
 from __future__ import annotations
 
@@ -56,5 +57,18 @@ def _hrnet_pose(num_keypoints: int = 4, heatmap_height: int = 120,
         num_keypoints=num_keypoints,
         heatmap_height=heatmap_height,
         heatmap_width=heatmap_width,
+        dtype=_DTYPES[compute_dtype],
+    )
+
+
+@register("yolo12n_pose")
+def _yolo12n_pose(num_classes: int = 1, num_keypoints: int = 4, kpt_dim: int = 3,
+                  compute_dtype: str = "bfloat16"):
+    from mtg_card_image_segmentation_tpu_torch.models.yolo12_pose import YOLO12Pose
+
+    return YOLO12Pose(
+        num_classes=num_classes,
+        num_keypoints=num_keypoints,
+        kpt_dim=kpt_dim,
         dtype=_DTYPES[compute_dtype],
     )

@@ -9,6 +9,9 @@ rebuilds only what changed. A missing ``nvcc`` or a failed build raises.
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one to its
 count where it launches its kernel and nowhere else, so a caller can zero
 the counts, run a path, and see which kernels the path went through.
+
+The build, the binding of a function's argument types and the counts are
+guarded by locks: a threaded server may send two first requests at once.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decoder", "fused_block", "preprocess", "stem")
+SOURCES = ("decoder", "fused_block", "preprocess", "stem", "stencil_floor")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -35,14 +38,17 @@ LAUNCHES: Dict[str, int] = {}
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -106,8 +112,9 @@ def bind(source: str, fn: str, argtypes: List) -> ctypes._CFuncPtr:
     build_all()
     f = getattr(_LIBS[source], fn)
     if f.argtypes is None:
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        with _COUNT_LOCK:
+            f.restype = ctypes.c_int
+            f.argtypes = argtypes
     return f
 
 

@@ -16,6 +16,7 @@ to the kernel, which the wrapper takes only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -31,15 +32,17 @@ _UP_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 _BAND_ROWS = 64  # output rows per CTA of the head decode
 
 _TAPS: Dict[Tuple[int, int, str], Tuple[torch.Tensor, ...]] = {}
+_CACHE_LOCK = threading.Lock()  # the per-shape tables fill once, from any thread
 
 
 def interp_taps(in_size: int, out_size: int, device: torch.device):
     """(lo, hi, w0, w1) tensors on ``device``, cached per shape."""
     key = (in_size, out_size, str(device))
-    if key not in _TAPS:
-        _TAPS[key] = tuple(torch.from_numpy(a).to(device)
-                           for a in _interp_taps(in_size, out_size))
-    return _TAPS[key]
+    with _CACHE_LOCK:
+        if key not in _TAPS:
+            _TAPS[key] = tuple(torch.from_numpy(a).to(device)
+                               for a in _interp_taps(in_size, out_size))
+        return _TAPS[key]
 
 
 def _lerp_taps(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -94,19 +97,20 @@ def _head_bands(h16: int, h8: int, out_h: int, device: torch.device):
     number of bands and the largest hs and s8 row counts. Cached per
     shape."""
     key = (h16, h8, out_h, str(device))
-    if key not in _BANDS:
-        lo_v, hi_v, _, _ = _interp_taps(h8, out_h)
-        lo_u, hi_u, _, _ = _interp_taps(h16, h8)
-        rows = []
-        for r0 in range(0, out_h, _BAND_ROWS):
-            r1 = min(r0 + _BAND_ROWS, out_h) - 1
-            s0, s1 = int(lo_v[r0]), int(hi_v[r1])
-            t0, t1 = int(lo_u[s0]), int(hi_u[s1])
-            rows.append((s0, s1 - s0 + 1, t0, t1 - t0 + 1))
-        table = np.asarray(rows, np.int32)
-        _BANDS[key] = (torch.from_numpy(table).to(device), len(rows),
-                       int(table[:, 3].max()), int(table[:, 1].max()))
-    return _BANDS[key]
+    with _CACHE_LOCK:
+        if key not in _BANDS:
+            lo_v, hi_v, _, _ = _interp_taps(h8, out_h)
+            lo_u, hi_u, _, _ = _interp_taps(h16, h8)
+            rows = []
+            for r0 in range(0, out_h, _BAND_ROWS):
+                r1 = min(r0 + _BAND_ROWS, out_h) - 1
+                s0, s1 = int(lo_v[r0]), int(hi_v[r1])
+                t0, t1 = int(lo_u[s0]), int(hi_u[s1])
+                rows.append((s0, s1 - s0 + 1, t0, t1 - t0 + 1))
+            table = np.asarray(rows, np.int32)
+            _BANDS[key] = (torch.from_numpy(table).to(device), len(rows),
+                           int(table[:, 3].max()), int(table[:, 1].max()))
+        return _BANDS[key]
 
 
 def _check_head(x, gw, low, w_lo) -> None:

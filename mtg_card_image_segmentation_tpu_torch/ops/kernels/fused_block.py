@@ -44,7 +44,8 @@ BLOCK_KERNELS = ("expand_gemm", "depthwise", "se_gate", "project_gemm")
 class BlockWeights:
     """One folded block's weights in the kernels' layouts. GEMM weights are
     (out, in) bf16, depthwise taps (k*k, C) bf16, SE weights (in, out)
-    fp32, biases fp32."""
+    fp32, biases fp32. The expanded width C is a multiple of 8 (see
+    :meth:`from_flax`)."""
 
     kernel_size: int
     dw_w: torch.Tensor
@@ -74,7 +75,16 @@ class BlockWeights:
     def from_flax(cls, params: Mapping[str, Any], kernel_size: int,
                   device: Union[str, torch.device] = "cpu") -> "BlockWeights":
         """From a folded Flax block subtree ({"expand"?, "depthwise",
-        "se"?, "project"}, HWIO kernels; numpy or torch leaves)."""
+        "se"?, "project"}, HWIO kernels; numpy or torch leaves).
+
+        The kernels move 8 channels (16 bytes) at a time, so an expanded
+        width that is not a multiple of 8 (a slimmed block: 471 of 672) is
+        widened here to the next multiple with zero channels: zero expand
+        rows and biases, zero depthwise taps and biases, zero SE fc1 rows,
+        fc2 columns and fc2 biases, zero project columns. Such a channel is
+        act(0) = 0 after the expand and after the depthwise, adds 0 to the
+        SE mean and 0 to the project, so the block's output is unchanged.
+        ``cexp`` is the widened width."""
 
         def t(a, dtype):
             a = a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a, np.float32))
@@ -84,21 +94,33 @@ class BlockWeights:
             return t(kernel, torch.float32).reshape(-1, kernel.shape[-1]).to(dtype)
 
         cexp = params["depthwise"]["conv"]["kernel"].shape[-1]
+        pad = -cexp % 8
+        if pad and "expand" not in params:
+            raise ValueError(f"a block without an expand conv needs a width that is a "
+                             f"multiple of 8, got {cexp}")
+
+        def widen(a, dim):  # zero channels up to the next multiple of 8
+            if not pad:
+                return a
+            shape = list(a.shape)
+            shape[dim] = pad
+            return torch.cat([a, a.new_zeros(shape)], dim=dim).contiguous()
+
         kw = {}
         if "expand" in params:
-            kw["exp_w"] = mat(params["expand"]["conv"]["kernel"], BF16).t().contiguous()
-            kw["exp_b"] = t(params["expand"]["conv"]["bias"], torch.float32)
+            kw["exp_w"] = widen(mat(params["expand"]["conv"]["kernel"], BF16).t().contiguous(), 0)
+            kw["exp_b"] = widen(t(params["expand"]["conv"]["bias"], torch.float32), 0)
         if "se" in params:
-            kw["se1_w"] = mat(params["se"]["fc1"]["kernel"], torch.float32)
+            kw["se1_w"] = widen(mat(params["se"]["fc1"]["kernel"], torch.float32), 0)
             kw["se1_b"] = t(params["se"]["fc1"]["bias"], torch.float32)
-            kw["se2_w"] = mat(params["se"]["fc2"]["kernel"], torch.float32)
-            kw["se2_b"] = t(params["se"]["fc2"]["bias"], torch.float32)
+            kw["se2_w"] = widen(mat(params["se"]["fc2"]["kernel"], torch.float32), 1)
+            kw["se2_b"] = widen(t(params["se"]["fc2"]["bias"], torch.float32), 0)
         dw = t(params["depthwise"]["conv"]["kernel"], torch.float32)
         return cls(
             kernel_size=kernel_size,
-            dw_w=dw.reshape(kernel_size * kernel_size, cexp).to(BF16),
-            dw_b=t(params["depthwise"]["conv"]["bias"], torch.float32),
-            proj_w=mat(params["project"]["conv"]["kernel"], BF16).t().contiguous(),
+            dw_w=widen(dw.reshape(kernel_size * kernel_size, cexp).to(BF16), 1),
+            dw_b=widen(t(params["depthwise"]["conv"]["bias"], torch.float32), 0),
+            proj_w=widen(mat(params["project"]["conv"]["kernel"], BF16).t().contiguous(), 1),
             proj_b=t(params["project"]["conv"]["bias"], torch.float32),
             **kw,
         )

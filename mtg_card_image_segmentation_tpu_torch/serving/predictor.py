@@ -25,6 +25,7 @@ full head, bilinear resize and argmax, all in stock ops.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,7 +35,13 @@ from mtg_card_image_segmentation_tpu_torch.data.preprocess import (
     IMAGENET_MEAN,
     IMAGENET_STD,
 )
+from mtg_card_image_segmentation_tpu_torch.compression.slim import tree_map
 from mtg_card_image_segmentation_tpu_torch.export.fold_bn import fold_batch_norm
+from mtg_card_image_segmentation_tpu_torch.export.quantize import (
+    dequantize_params,
+    quantize_params,
+    torch_xp,
+)
 from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
     LOW_TAP_ROW,
     MOBILENET_V3_LARGE_ROWS,
@@ -51,6 +58,7 @@ from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import (
 )
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.stem import fused_stem
 from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_matrix, bilinear_resize
+from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
 from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 
@@ -62,6 +70,7 @@ _IMAGENET_MEAN = np.array(IMAGENET_MEAN, np.float32)
 _IMAGENET_STD = np.array(IMAGENET_STD, np.float32)
 
 _INTERP: Dict[Tuple[int, int, str], torch.Tensor] = {}
+_INTERP_LOCK = threading.Lock()  # a threaded server may fill the cache from two requests
 
 
 def _fold_normalize_into_stem(params):
@@ -131,9 +140,10 @@ def interp_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Te
     """``_interp_matrix`` as a float32 tensor on ``device``, cached per
     shape."""
     key = (in_size, out_size, str(device))
-    if key not in _INTERP:
-        _INTERP[key] = torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
-    return _INTERP[key]
+    with _INTERP_LOCK:
+        if key not in _INTERP:
+            _INTERP[key] = torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
+        return _INTERP[key]
 
 
 def _head_gated(head: LRASPPHead, high: torch.Tensor,
@@ -198,6 +208,11 @@ class SegPredictor:
     CPU is used only with ``device="cpu"``, where the kernels' plain
     versions run. Gate a deployment on :meth:`mask_agreement` >= 0.999.
 
+    ``quantize="int8"``: per-output-channel symmetric weight quantization
+    (``export/quantize.py``) of every conv kernel of 512 elements or more;
+    the int8 kernels and their float32 scales stay on the device
+    (``_qparams``) and the model computes with their product in ``dtype``.
+
     ``fused_head`` and ``fused_stem`` (both off by default) switch the
     kernel path's head tail + decode and its stem to their hand-written
     kernels; ``fused_stem`` needs ``height`` and ``width`` to be multiples
@@ -207,7 +222,9 @@ class SegPredictor:
     def __init__(self, params, batch_stats, height: int, width: int,
                  use_kernels: bool = True, dtype: torch.dtype = torch.bfloat16,
                  device=None, fused_head: bool = False,
-                 fused_stem: bool = False) -> None:
+                 fused_stem: bool = False, quantize: Optional[str] = None) -> None:
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         if (fused_head or fused_stem) and not use_kernels:
             raise ValueError("fused_head and fused_stem are options of use_kernels=True")
         if fused_stem and (height % 8 or width % 8):
@@ -218,9 +235,17 @@ class SegPredictor:
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.fused_head, self.fused_stem = fused_head, fused_stem
+        self.quantize = quantize
         folded = fold_batch_norm(params, batch_stats)
         if use_kernels:
             folded = _fold_normalize_into_stem(folded)
+        if quantize == "int8":
+            # what persists on the card: int8 kernels + float32 scales (and
+            # the small leaves that stay dense); the weights the convs and
+            # the block kernels use are float32(int8) * scale in ``dtype``
+            qtree = quantize_params(tree_map(lambda a: np.asarray(a, np.float32), folded))
+            self._qparams = tree_map(lambda a: torch.from_numpy(a).to(self.device), qtree)
+            folded = dequantize_params(self._qparams, dtype, xp=torch_xp)
         self.model = from_flax(folded, None, dtype=dtype).to(self.device, dtype)
         self.model = self.model.to(memory_format=torch.channels_last)
         if use_kernels:
@@ -234,6 +259,15 @@ class SegPredictor:
             with torch.no_grad():  # OIHW -> the kernel's HWIO
                 self._stem = (conv.weight.float().permute(2, 3, 1, 0).contiguous(),
                               conv.bias.float().contiguous())
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, name: str, height: int, width: int,
+                        **kw) -> "SegPredictor":
+        """A predictor from the checkpoint ``<checkpoint_dir>/<name>``
+        (``training.checkpoint.load_params``: parameters and statistics
+        only, no train state)."""
+        params, batch_stats, _ = load_params(checkpoint_dir, name)
+        return cls(params, batch_stats, height, width, **kw)
 
     @torch.inference_mode()
     def predict(self, images_u8) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Weight bridge between the JAX package's Flax trees and the port's modules.
 
-The Flax tree (``params`` and ``batch_stats`` of ``CardSegmentationModel`` or
-``HRNetPose``, as nested dicts of numpy arrays) maps name for name onto the
+The Flax tree (``params`` and ``batch_stats`` of ``CardSegmentationModel``,
+``HRNetPose`` or ``YOLO12Pose``, as nested dicts of numpy arrays) maps name for name onto the
 port's ``state_dict``:
 
 - conv kernels HWIO -> OIHW; that one permutation also turns a depthwise
@@ -14,8 +14,8 @@ port's ``state_dict``:
 - BN ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
   ``running_mean/running_var`` of ``BatchNorm2d(eps=1e-3, momentum=0.01)``.
 
-``init_flax_like`` and ``init_hrnet_flax_like`` make such trees from a numpy
-seed, for runs that have no trained checkpoint and no JAX (the card's
+``init_flax_like``, ``init_hrnet_flax_like`` and ``init_yolo_flax_like`` make
+such trees from a numpy seed, for runs that have no trained checkpoint and no JAX (the card's
 machine).
 """
 
@@ -30,6 +30,7 @@ import torch
 from mtg_card_image_segmentation_tpu_torch.models.hrnet import HRNetPose
 from mtg_card_image_segmentation_tpu_torch.models.layers import make_divisible
 from mtg_card_image_segmentation_tpu_torch.models.lraspp import CardSegmentationModel
+from mtg_card_image_segmentation_tpu_torch.models.yolo12_pose import YOLO12Pose
 from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
     HIGH_CHANNELS,
     LOW_CHANNELS,
@@ -174,6 +175,58 @@ def init_hrnet_flax_like(seed: int, num_keypoints: int = 4) -> Tuple[Dict[str, A
         elif leaf in ("weight", "running_var"):
             a = rng.uniform(0.8, 1.2, shape) if leaf == "weight" else rng.uniform(0.6, 1.4, shape)
         else:  # BN bias and mean, the final conv's bias
+            a = 0.1 * rng.standard_normal(shape)
+        sd[name] = torch.from_numpy(a.astype(np.float32))
+    return state_dict_to_flax(sd)
+
+
+def yolo_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                   dtype: torch.dtype = torch.float32) -> YOLO12Pose:
+    """Build the port's ``YOLO12Pose`` (eval mode, float32 parameters,
+    compute ``dtype``) from a Flax tree; classes and keypoints are read from
+    the tree (``kpt_dim`` is 3: x, y, confidence)."""
+    net = params["net"]
+    num_classes = int(np.shape(net["cls0_2"]["kernel"])[-1])
+    model = YOLO12Pose(
+        num_classes=num_classes,
+        num_keypoints=int(np.shape(net["kpt0_2"]["kernel"])[-1]) // 3,
+        kpt_dim=3, dtype=dtype,
+    )
+    model.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
+    return model.eval()
+
+
+def init_yolo_flax_like(seed: int, num_classes: int = 1,
+                        num_keypoints: int = 4) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats) with the Flax layout and names of the JAX
+    package's ``YOLO12Pose`` variables, drawn from a numpy seed.
+
+    Names and shapes are read off the port's module. Conv kernels are
+    LeCun-normal, BN scale, bias, mean and var are moved off their init
+    values (1, 0, 0, 1). The head's last biases follow the reference's
+    priors: -4.595 (a 1% prior) on every class logit and on each keypoint's
+    confidence channel, 0 on the keypoint offsets and the box bins.
+    """
+    rng = np.random.default_rng(seed)
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    model = YOLO12Pose(num_classes=num_classes, num_keypoints=num_keypoints)
+    for name, t in model.state_dict().items():
+        module, leaf = name.rsplit(".", 1)
+        shape = tuple(t.shape)
+        if leaf == "num_batches_tracked":
+            continue
+        last = module.rsplit(".", 1)[-1]
+        if t.dim() == 4:
+            a = rng.standard_normal(shape) / np.sqrt(int(np.prod(shape[1:])))
+        elif leaf == "bias" and last.endswith("_2"):  # the head's plain convs
+            a = np.zeros(shape)
+            if last.startswith("cls"):
+                a[:] = -4.595
+            elif last.startswith("kpt"):
+                a[2::3] = -4.595
+        elif leaf in ("weight", "running_var"):
+            a = rng.uniform(0.8, 1.2, shape) if leaf == "weight" else rng.uniform(0.6, 1.4, shape)
+        else:  # BN bias and mean
             a = 0.1 * rng.standard_normal(shape)
         sd[name] = torch.from_numpy(a.astype(np.float32))
     return state_dict_to_flax(sd)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mtg_card_image_segmentation_tpu.data.preprocess import preprocess_batch as jax_preprocess
@@ -414,3 +415,139 @@ def test_new_kernel_paths_refuse_other_devices(case):
         else:
             upsample2x_add(torch.empty((1, 4, 4, 8), device="meta"),
                            torch.empty((1, 8, 8, 8), device="meta"))
+
+
+# --------------------------------------------------------------------------
+# stencil floor (tools/vpu_stencil_floor.py)
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tpu_stencil_tool():
+    """The TPU tool's module, loaded from its file, with its shape constants
+    set to a small size for the interpreter (the file itself is untouched)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "vpu_stencil_floor.py"
+    spec = importlib.util.spec_from_file_location("_vpu_stencil_floor_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.BT, mod.H, mod.W, mod.CIN, mod.CEXP, mod.B = 2, 8, 8, 16, 64, 4
+    return mod
+
+
+@pytest.mark.parametrize("mode", ["pass", "arith", "full"])
+def test_stencil_floor_plain_matches_tpu_kernel_body(tpu_stencil_tool, mode):
+    """stencil_floor (plain version on the CPU) against the TPU kernel's
+    body (tools/vpu_stencil_floor.make_kernel) run by the Pallas
+    interpreter, same numpy inputs. 1e-5 at outputs of order 5e-2: both
+    round y and every term to bf16 at the same places; the float32 sums are
+    taken in another order, and a y that sits within float32 rounding of a
+    bf16 tie may round the other way (one such flip moves a mean over 64
+    channels by at most 2^-8/64 = 6e-5 at |y| < 1, so the inputs are scaled to
+    keep y small and the seed is fixed)."""
+    from jax.experimental import pallas as pl
+
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import (
+        stencil_floor,
+        stencil_floor_plain,
+    )
+
+    t = tpu_stencil_tool
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((t.B, t.H, t.W, t.CIN)) * 0.25).astype(np.float32)
+    w_exp = (rng.standard_normal((t.CIN, t.CEXP)) * 0.05).astype(np.float32)
+    w_dw = (rng.standard_normal((t.K * t.K, t.CEXP)) * 0.05).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    theirs = pl.pallas_call(
+        t.make_kernel(mode),
+        out_shape=jax.ShapeDtypeStruct((t.B, t.H, t.W, 1), jnp.float32),
+        grid=(t.B // t.BT,),
+        in_specs=[
+            pl.BlockSpec((t.BT, t.H, t.W, t.CIN), lambda i: (i, 0, 0, 0)),
+            pl.BlockSpec((t.CIN, t.CEXP), lambda i: (0, 0)),
+            pl.BlockSpec((t.K * t.K, t.CEXP), lambda i: (0, 0)),
+        ],
+        out_specs=pl.BlockSpec((t.BT, t.H, t.W, 1), lambda i: (i, 0, 0, 0)),
+        interpret=True,
+    )(xb, jnp.asarray(w_exp), jnp.asarray(w_dw))
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
+    ours = stencil_floor(xt, torch.from_numpy(w_exp), torch.from_numpy(w_dw), mode,
+                         t.K, t.DIL)
+    assert ours.dtype == torch.float32 and tuple(ours.shape) == (t.B, t.H, t.W, 1)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0, atol=1e-5)
+    # the wrapper took the plain version (CPU tensor) and launched nothing
+    assert torch.equal(ours, stencil_floor_plain(
+        xt, torch.from_numpy(w_exp), torch.from_numpy(w_dw), mode, t.K, t.DIL))
+
+
+def test_stencil_floor_modes_differ_and_full_is_the_depthwise():
+    """``full`` is the dilated depthwise of the tail block: against
+    F.conv2d(groups=E, dilation=2) in float32 on the bf16-rounded y and taps
+    (the per-term bf16 rounding bounds the gap: 25 terms of |y*w| <= 0.05,
+    each rounded at 2^-9 relative, mean of 64 channels -> 1e-4). ``arith`` is a
+    different function on purpose, ``pass`` the mean of y."""
+    import torch.nn.functional as F
+
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import (
+        bound_ms,
+        stencil_floor,
+    )
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.standard_normal((2, 8, 16, 16)) * 0.25).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    w_exp = torch.from_numpy((rng.standard_normal((16, 64)) * 0.05).astype(np.float32))
+    w_dw = torch.from_numpy((rng.standard_normal((25, 64)) * 0.05).astype(np.float32))
+    out = {m: stencil_floor(x, w_exp, w_dw, m) for m in ("pass", "arith", "full")}
+    y = (x.float() @ w_exp.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    np.testing.assert_allclose(out["pass"].numpy(), y.mean(-1, keepdim=True).numpy(), atol=1e-6)
+    taps = w_dw.to(torch.bfloat16).float().reshape(5, 5, 64).permute(2, 0, 1)[:, None]
+    conv = F.conv2d(y.permute(0, 3, 1, 2), taps, padding=4, dilation=2, groups=64)
+    want = conv.permute(0, 2, 3, 1).mean(-1, keepdim=True)
+    np.testing.assert_allclose(out["full"].numpy(), want.numpy(), atol=1e-4)
+    assert float((out["full"] - out["arith"]).abs().max()) > 1e-4
+    with pytest.raises(ValueError, match="unknown mode"):
+        stencil_floor(x, w_exp, w_dw, "half")
+    # the bound at the tool's shape: operations, and `pass` below the others
+    full, by = bound_ms((128, 32, 32, 160), 960, "full")
+    assert by == "operations" and full > bound_ms((128, 32, 32, 160), 960, "pass")[0]
+    # 25 multiplies, 24 adds and the add into the channel sum per expanded value
+    assert full == pytest.approx(128 * 1024 * 960 * 25 * 2 / 67e12 * 1e3, rel=1e-12)
+
+
+def test_stencil_tool_fails_without_a_card():
+    """tools/stencil_floor_torch.py exits non-zero and prints no time where
+    CUDA is absent; its inputs are the TPU tool's (same seed, shapes and
+    scales), and its kernel wrapper refuses shapes the kernel does not take."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import _check
+
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(repo / "tools" / "stencil_floor_torch.py")],
+                         cwd=repo, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and " ms" not in out.stdout
+    sys.path.insert(0, str(repo / "tools"))
+    try:
+        import stencil_floor_torch as tool
+    finally:
+        sys.path.remove(str(repo / "tools"))
+    assert (tool.B, tool.H, tool.W, tool.CIN, tool.CEXP, tool.K, tool.DIL) == (
+        128, 32, 32, 160, 960, 5, 2)
+    rng = np.random.default_rng(0)  # the TPU tool's draws, in its order
+    x = rng.standard_normal((128, 32, 32, 160))
+    w_exp = rng.standard_normal((160, 960)) * 0.05
+    w_dw = rng.standard_normal((25, 960)) * 0.05
+    tx, tw, td = tool.make_inputs(0, "cpu")
+    assert tx.dtype == torch.bfloat16 and tw.dtype == td.dtype == torch.float32
+    assert torch.equal(tx, torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16))
+    np.testing.assert_array_equal(tw.numpy(), w_exp.astype(np.float32))
+    np.testing.assert_array_equal(td.numpy(), w_dw.astype(np.float32))
+    with pytest.raises(ValueError, match="w_dw"):
+        _check(tx[:1], tw, td[:9], "full", 5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        _check(tx[:1].float(), tw, td, "full", 5)

@@ -183,30 +183,41 @@ _JAX_IMPORT = re.compile(
 
 
 def test_port_sources_import_no_jax():
-    """No port source nor chip_smoke.py imports jax, flax, optax, orbax or
-    the JAX package, nor names a module of it without ``_torch``."""
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    """No port source, nor chip_smoke.py, nor the card's stencil tool imports
+    jax, flax, optax, orbax or the JAX package, names a module of it without
+    ``_torch``, or imports the Orbax converter (the one tool that needs
+    JAX)."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tools" / "stencil_floor_torch.py"]
+    assert len(files) > 25
+    names = {f.relative_to(PORT).as_posix() for f in files[:-2]}
+    assert {"serving/server.py", "serving/imagecodec.py", "models/yolo12_pose.py",
+            "compression/slim.py", "export/quantize.py", "training/checkpoint.py",
+            "ops/kernels/stencil_floor.py"} <= names
     for f in files:
         text = f.read_text()
         assert not _JAX_IMPORT.search(text), f
         # a dotted module path of the JAX package (file paths in comments,
         # "mtg_card_image_segmentation_tpu/...", only name the reference)
         assert not re.search(r"\bmtg_card_image_segmentation_tpu\.", text), f
+        assert not re.search(r"^\s*(import|from)\s+\S*orbax_to_torch_checkpoint", text, re.M), f
+        assert "import_module(\"orbax_to_torch" not in text, f
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module and chip_smoke.py import in a process where
-    importing jax fails."""
+    """Every port module, chip_smoke.py and tools/stencil_floor_torch.py
+    import in a process where importing jax, flax, orbax, optax or the JAX
+    package fails."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in PORT.rglob("*.py")
     )
     code = (
         "import sys, importlib\n"
-        "for m in ('jax', 'flax', 'mtg_card_image_segmentation_tpu'):\n"
+        "for m in ('jax', 'flax', 'orbax', 'optax', 'mtg_card_image_segmentation_tpu'):\n"
         "    sys.modules[m] = None\n"
-        f"for m in {mods + ['chip_smoke']!r}:\n"
+        "sys.path.insert(0, 'tools')\n"
+        f"for m in {mods + ['chip_smoke', 'stencil_floor_torch']!r}:\n"
         "    importlib.import_module(m)\n"
         "print('ok')\n"
     )
