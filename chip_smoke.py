@@ -5,8 +5,12 @@
 
 Builds the hand-written kernels from ``mtg_card_image_segmentation_tpu_torch/
 csrc/`` (into ``build/kernels/``), holds each kernel against its plain
-PyTorch version on the card at the main paths' shapes, then drives the main
-paths with random weights from a seed:
+PyTorch version on the card at the main paths' shapes (the block kernels
+also at the server's one-image and two-image 20x15 maps, where a 128-row
+GEMM tile spans two images with different SE gates, and the GEMM on its own
+at K and N of 472; the tail chain's four kernels timed one by one beside
+their byte floors, ``fused_tail_chain_steps``), then drives the main paths
+with random weights from a seed:
 
 - ``SegPredictor.predict`` at 512x512 with the full-width MobileNetV3-Large +
   LR-ASPP, its masks checked against the port's own CPU predictor and against
@@ -37,7 +41,12 @@ paths with random weights from a seed:
 It also profiles a few b128 ``predict`` calls of the three
 predictors: device time by kernel class and the card's idle share.
 
-Every phase prints one JSON line. Then come the kernels' summary line, the
+Every phase prints one JSON line (the redesigned kernels' lines carry
+``prev_ms_pr3_recorded``, their time before the redesign as recorded from
+an earlier run of this script, not measured here; the chain's line and
+``fused_tail_chain_steps`` carry ``floor_b_ms``, the byte floor of its
+design). Then come the kernels' summary line (every number in it measured
+or computed in this run), the
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Imports nothing of JAX.
@@ -74,6 +83,12 @@ YOLO_LEVEL_TOL = (0.25, 0.02)  # max|d|, mean|d|: card vs CPU bf16 level outputs
 # |y| in [2, 4) moves `pass` by 2^-6/960 = 1.63e-5. The gate allows two in one
 # pixel, and holds the mean, which a wrong tap or shift would move, at 1e-6.
 STENCIL_TOL = (4e-5, 1e-6)
+# the kernels' times before their redesign: recorded from an earlier run of
+# this script's kernel phase (NVIDIA H100 80GB HBM3, 700.00 W, b128 main-path
+# shapes), not measured by this run; printed in the kernel lines only, as
+# prev_ms_pr3_recorded
+PREV_MS = {"fused_mask_decode": 0.300, "fused_tail_chain": 7.141,
+           "fused_inverted_residual": 2.633}
 
 
 def emit(obj) -> None:
@@ -118,6 +133,31 @@ def bf16_ulp(magnitude: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(magnitude, 1e-30))) - 7)
 
 
+def gc_timer():
+    """Start timing the interpreter's garbage collections; the function it
+    returns stops the timing and gives their count, the full (generation 2)
+    ones and the longest pause. A full collection stops every thread, so one
+    in a request window shows as a stall of every request in flight."""
+    import gc
+
+    pauses, start = [], [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], (time.perf_counter() - start[0]) * 1e3))
+
+    gc.callbacks.append(cb)
+
+    def stop() -> dict:
+        gc.callbacks.remove(cb)
+        return {"collections": len(pauses), "full": sum(g == 2 for g, _ in pauses),
+                "max_pause_ms": max((ms for _, ms in pauses), default=0.0)}
+
+    return stop
+
+
 def timed_launches(name: str, fn, iters: int):
     """(ms, launches): ``cuda_ms`` of ``fn`` with the launch counts zeroed
     before and ``name``'s count read after (warm-up calls included)."""
@@ -126,6 +166,50 @@ def timed_launches(name: str, fn, iters: int):
     _build.reset_launches()
     ms = cuda_ms(fn, iters)
     return ms, _build.LAUNCHES.get(name, 0)
+
+
+def chain_steps(torch, fb, x, blocks) -> dict:
+    """The tail chain's four kernels one at a time, at its main-path shape:
+    each step timed alone on the inputs the chain gives it (CUDA events),
+    summed over the blocks, beside its byte floor (every byte it must read
+    or write, once, over the HBM rate). ``floor_b_ms`` is their sum, the
+    floor of design (b) (maps through HBM in bf16) for the whole chain."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, h, w, _ = x.shape
+    m, dev = b * h * w, x.device
+    steps = {n: {"ms": 0.0, "floor_ms": 0.0, "gbytes": 0.0} for n in fb.BLOCK_KERNELS}
+
+    def add(name, fn, nbytes):
+        steps[name]["ms"] += cuda_ms(fn, 20)
+        steps[name]["gbytes"] += nbytes / 1e9
+        steps[name]["floor_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+
+    val, val_bf16 = x, x
+    for i, bw in enumerate(blocks):
+        last = i == len(blocks) - 1
+        cin, cexp, cout = bw.cin, bw.cexp, bw.cout
+        res = val if cin == cout else None
+        y = torch.empty((b, h, w, cexp), dtype=bf16, device=dev)
+        add("expand_gemm", lambda: fb._gemm(val_bf16, bw.exp_w, bw.exp_b, None, 0, None, y,
+                                            "hardswish", "expand_gemm"),
+            m * cin * 2 + cexp * cin * 2 + cexp * 4 + m * cexp * 2)
+        dw, sums, nb = fb._depthwise(y, bw, 1, "hardswish", 2)
+        add("depthwise", lambda: fb._depthwise(y, bw, 1, "hardswish", 2),
+            2 * m * cexp * 2 + 25 * cexp * 2 + cexp * 4 + b * nb * cexp * 4)
+        se_w = sum(t.numel() * 4 for t in (bw.se1_w, bw.se1_b, bw.se2_w, bw.se2_b))
+        gate = fb._se_gate(sums, nb, h * w, bw)
+        add("se_gate", lambda: fb._se_gate(sums, nb, h * w, bw),
+            b * nb * cexp * 4 + se_w + b * cexp * 2)
+        out = torch.empty((b, h, w, cout), dtype=bf16 if last else f32, device=dev)
+        copy = None if last else torch.empty((b, h, w, cout), dtype=bf16, device=dev)
+        add("project_gemm", lambda: fb._gemm(dw, bw.proj_w, bw.proj_b, gate, h * w, res, out,
+                                             None, "project_gemm", copy),
+            m * cexp * 2 + b * cexp * 2 + cout * cexp * 2 + cout * 4
+            + (m * cout * res.element_size() if res is not None else 0)
+            + m * cout * out.element_size() + (m * cout * 2 if copy is not None else 0))
+        val, val_bf16 = (out, out) if last else (out, copy)
+    return {"steps": steps, "steps_ms": sum(v["ms"] for v in steps.values()),
+            "floor_b_ms": sum(v["floor_ms"] for v in steps.values())}
 
 
 def phase_env(torch):
@@ -175,6 +259,7 @@ def phase_kernels(torch, weights):
     import torch.nn.functional as F
 
     from mtg_card_image_segmentation_tpu_torch.export.fold_bn import fold_batch_norm
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
     from mtg_card_image_segmentation_tpu_torch.ops.kernels import decoder as dec
     from mtg_card_image_segmentation_tpu_torch.ops.kernels import fused_block as fb
     from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
@@ -182,6 +267,16 @@ def phase_kernels(torch, weights):
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     rows = {}
+
+    # the card idles through the build: half a second of matmuls brings its
+    # clocks up before the first timing (the decode's, a few ms in all)
+    warm = torch.ones((4096, 4096), dtype=torch.bfloat16, device=dev)
+    t_end = time.perf_counter() + 0.5
+    while time.perf_counter() < t_end:
+        for _ in range(20):
+            warm @ warm
+        torch.cuda.synchronize()
+    del warm
 
     # -- fused_mask_decode: (128, 64, 64) f32 -> 512x512 u8, bit-exact ------
     b, h = BATCHES[-1], SIZE // 8
@@ -204,6 +299,8 @@ def phase_kernels(torch, weights):
         "library_ms": cuda_ms(lib, 50), "bound_ms": bnd, "bound_by": by,
         "max_abs_err": err}
     emit({"phase": "kernel", "name": "fused_mask_decode", "shape": [b, h, h],
+          "plan": dec.mask_decode_plan(b, h, h, SIZE, SIZE, _build.sm_count(dev)),
+          "prev_ms_pr3_recorded": PREV_MS["fused_mask_decode"],
           "out": [b, SIZE, SIZE], "exact": True, "agreement_with_library": lib_agree,
           **rows["fused_mask_decode"]})
 
@@ -237,6 +334,32 @@ def phase_kernels(torch, weights):
         if not ok:
             fail(f"fused_inverted_residual block{i}: max|d| {float(d.max())} > {TOL}")
 
+    # kernel sizes the model does not use (the depthwise's run-time-k
+    # instance; 3 and 5 are unrolled): k = 7 and 1, seeded random weights
+    krng = np.random.default_rng(SEED + 11)
+    for k, st, dil in ((7, 1, 1), (7, 2, 1), (7, 1, 2), (1, 1, 1)):
+        tree = {name: {"conv": {  # HWIO kernels, LeCun-normal over their fan-in
+            "kernel": (krng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32),
+            "bias": (0.1 * krng.standard_normal(shape[-1])).astype(np.float32)}}
+            for name, shape, fan_in in (("expand", (1, 1, 24, 64), 24),
+                                        ("depthwise", (k, k, 1, 64), k * k),
+                                        ("project", (1, 1, 64, 24), 64))}
+        bw = fb.BlockWeights.from_flax(tree, k, dev)
+        x = torch.from_numpy(krng.standard_normal((8, 16, 16, 24)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        got = fb.fused_inverted_residual(x, bw, k, st, "hardswish", st == 1, dil)
+        want = fb.inverted_residual_plain(x, bw, st, "hardswish", st == 1, dil, torch.bfloat16)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        ok = float(d.max()) <= TOL
+        emit({"phase": "kernel", "name": "fused_inverted_residual", "block": None,
+              "shape": list(x.shape), "k": k, "stride": st, "dilation": dil, "se": False,
+              "act": "hardswish", "residual": st == 1, "max_abs_err": float(d.max()),
+              "max_abs_ref": float(want.float().abs().max()), "within_tol": ok})
+        if not ok:
+            fail(f"fused_inverted_residual k={k} stride {st} dilation {dil}: "
+                 f"max|d| {float(d.max())} > {TOL}")
+
     # main-path shape of one tail block (block13, b128 at 32x32), timed
     blk, bw, x, (bw, k, st, act, res, dil) = block_case(13, b, SIZE // 16)
     got = fb.fused_inverted_residual(x, bw, k, st, act, res, dil)
@@ -262,6 +385,7 @@ def phase_kernels(torch, weights):
         "max_abs_err": float(d.max())}
     emit({"phase": "kernel", "name": "fused_inverted_residual", "block": 13,
           "shape": list(x.shape), "timed": True, "max_abs_ref": float(want.float().abs().max()),
+          "prev_ms_pr3_recorded": PREV_MS["fused_inverted_residual"],
           **rows["fused_inverted_residual"]})
 
     # -- fused_tail_chain at full widths (128, 32, 32, 112) ------------------
@@ -291,6 +415,7 @@ def phase_kernels(torch, weights):
                  (bw.exp_w, bw.exp_b, bw.dw_w, bw.dw_b, bw.se1_w, bw.se1_b,
                   bw.se2_w, bw.se2_b, bw.proj_w, bw.proj_b))
     bnd, by = bound(m * (112 + 160) * 2 + wbytes, tensor_flops=tflops, fp32_flops=fflops)
+    steps = chain_steps(torch, fb, x, blocks)
     rows["fused_tail_chain"] = {
         "ms": cuda_ms(lambda: fb.fused_tail_chain(x, blocks, 5, "hardswish", 2), 20),
         "plain_ms": cuda_ms(lambda: fb.tail_chain_plain(x, blocks, "hardswish", 2), 3),
@@ -299,7 +424,39 @@ def phase_kernels(torch, weights):
     emit({"phase": "kernel", "name": "fused_tail_chain", "shape": list(x.shape),
           "gflop_tensor": tflops / 1e9, "gflop_fp32": fflops / 1e9,
           "max_abs_ref": float(want.float().abs().max()),
-          "library_max_abs_err": lib_err, **rows["fused_tail_chain"]})
+          "library_max_abs_err": lib_err, "floor_b_ms": steps["floor_b_ms"],
+          "prev_ms_pr3_recorded": PREV_MS["fused_tail_chain"], **rows["fused_tail_chain"]})
+    emit({"phase": "kernel", "name": "fused_tail_chain_steps", "shape": list(x.shape), **steps})
+
+    # -- K1/K4 on their own at widths the tiling must take: K and N of 472
+    # (slim block 12), 600 rows (two images of 300: the 128-row tiles 256-383
+    # straddle them, each image with its own gate), against the plain GEMM ---
+    gemm_cases = []
+    for mm, kk, nn, gated in ((600, 112, 472, False), (600, 472, 160, True),
+                              (b * 1024, 112, 472, False), (b * 1024, 472, 160, True)):
+        g = torch.Generator(device="cpu").manual_seed(mm + kk + nn)
+        a = torch.randn(mm, kk, generator=g).to(dev, torch.bfloat16)
+        wt = (torch.randn(nn, kk, generator=g) / kk ** 0.5).to(dev, torch.bfloat16)
+        bias = torch.randn(nn, generator=g).to(dev)
+        rpi = 300 if mm == 600 else 1024
+        gate = (torch.rand(mm // rpi, kk, generator=g).to(dev, torch.bfloat16)
+                if gated else None)
+        res = torch.randn(mm, nn, generator=g).to(dev) if gated else None
+        act, odt = (None, torch.float32) if gated else ("hardswish", torch.bfloat16)
+        got = fb.pw_gemm(a, wt, bias, gate, rpi, res, act, odt)
+        want = fb.pw_gemm_plain(a, wt, bias, gate, rpi, res, act, odt)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        plan = fb.gemm_plan(mm, nn, kk, gated, _build.sm_count(dev))
+        case = {"m": mm, "k": kk, "n": nn, "gated": gated, "max_abs_err": err,
+                "max_abs_ref": float(want.float().abs().max()),
+                "plan": {k2: plan[k2] for k2 in ("bn", "n_tiles", "stages", "resident",
+                                                 "k_pad16", "smem_bytes", "grid")},
+                "within_tol": err <= TOL}
+        gemm_cases.append(case)
+        if err > TOL:
+            fail(f"pw_gemm {mm}x{kk}x{nn} (gated {gated}): max|d| {err} (gate {TOL})")
+    emit({"phase": "kernel", "name": "pw_gemm", "cases": gemm_cases})
 
     # -- slim widths: block 12 at 471 expanded channels and the slim chain
     # (471/672/672, widened to 472 inside BlockWeights) on the kernels -------
@@ -307,7 +464,6 @@ def phase_kernels(torch, weights):
         expansion_channel_prune,
         slim_seg_state,
     )
-    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
 
     pruned, _ = expansion_channel_prune(weights[0], 0.3)
     slim_params, slim_stats, overrides = slim_seg_state(pruned, weights[1])
@@ -345,18 +501,28 @@ def phase_kernels(torch, weights):
     # decode goes (1,40,30) -> (1,320,240); the corners' normalize sees
     # (1,480,640,3). Wrapper against plain, with the launches of each call ----
     tail_hw = (SERVER_HW[0] // 16, SERVER_HW[1] // 16)
-    for i in (12, 13):
-        blk, bw, x1, (bw, k, st, act, res, dil) = block_case(i, 1, tail_hw)
+    for i, n_img in ((12, 1), (13, 1), (13, 2)):
+        blk, bw, x1, (bw, k, st, act, res, dil) = block_case(i, n_img, tail_hw)
         _build.reset_launches()
         got = fb.fused_inverted_residual(x1, bw, k, st, act, res, dil)
         counts = dict(_build.LAUNCHES)
         want = fb.inverted_residual_plain(x1, bw, st, act, res, dil, torch.bfloat16)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
+        extra = {}
+        if n_img == 2:  # the project's 128-row tile 256-383 holds rows of both images
+            dw, sums, nbands = fb._depthwise(fb.pw_gemm(x1, bw.exp_w, bw.exp_b, act=act,
+                                                        name="expand_gemm").view(
+                *x1.shape[:3], bw.cexp), bw, 1, act, dil)
+            gate = fb._se_gate(sums, nbands, dw.shape[1] * dw.shape[2], bw)
+            extra = {"rows_per_image": dw.shape[1] * dw.shape[2],
+                     "gates_differ": int((gate[0] != gate[1]).sum())}
+            if extra["gates_differ"] == 0:
+                fail("the two images of the (2,20,15) case share their SE gate")
         emit({"phase": "kernel", "name": "fused_inverted_residual", "block": i,
               "path": "server", "shape": list(x1.shape), "gemm_rows": x1[..., 0].numel(),
               "max_abs_err": err, "max_abs_ref": float(want.float().abs().max()),
-              "launches": counts, "within_tol": err <= TOL})
+              "launches": counts, "within_tol": err <= TOL, **extra})
         if err > TOL or counts != {n: 1 for n in fb.BLOCK_KERNELS}:
             fail(f"block {i} at the server's shape {tuple(x1.shape)}: max|d| {err} "
                  f"(gate {TOL}), launches {counts}")
@@ -1046,6 +1212,7 @@ def phase_server(torch, weights, pose_weights, yolo_weights, card):
                 fail("the server's predictors are not on the card")
 
             answers = {}
+            stop_gc = gc_timer()
             _build.reset_launches()
             for i in range(4):  # one request at a time
                 answers[("/api/segment", i)] = _post(srv.port, "/api/segment", bodies[i])
@@ -1063,6 +1230,7 @@ def phase_server(torch, weights, pose_weights, yolo_weights, card):
                 t.join(timeout=300)
             if any(t.is_alive() for t in threads) or len(answers) != 16:
                 fail(f"concurrent clients did not finish: {len(answers)} answers")
+            gc_requests = stop_gc()
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
             want = {n: 3 * 8 for n in BLOCK_KERNELS}
@@ -1154,7 +1322,8 @@ def phase_server(torch, weights, pose_weights, yolo_weights, card):
               "heatmap_card_vs_cpu_mean_abs_err": hm_vs_cpu[1],
               "decode_card_vs_cpu_max_abs_err_px": decode_vs_cpu[0],
               "decode_card_vs_cpu_max_abs_err_conf": decode_vs_cpu[1],
-              "bad_body_status": bad_status, **{k.rsplit("/", 1)[1]: v for k, v in stats.items()},
+              "bad_body_status": bad_status, "gc_during_requests": gc_requests,
+              **{k.rsplit("/", 1)[1]: v for k, v in stats.items()},
               "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
 
         # the same server with --pose-family yolo (square input, the larger

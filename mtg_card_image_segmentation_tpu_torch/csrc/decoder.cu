@@ -9,17 +9,29 @@
 // fused_mask_decode (two dense MXU matmuls per image on the TPU).
 //
 // Bound on the H100: memory. At b128, 64x64 -> 512x512 the kernel must read
-// 2.1 MB and write 33.5 MB, ~11 us at 3.35 TB/s, against ~0.07 GFLOP. The
-// dense matmul form would spend 2*H*h + 2*H*W*w operations per image on
-// zeros, so the design is a direct two-tap gather: each thread makes 16
-// neighbouring pixels of one output row and writes them with one 16-byte
-// store; the score rows it reads stay in L1/L2 (the whole input is 2 MB).
+// 2.1 MB and write 33.5 MB, ~11 us at 3.35 TB/s, against ~0.07 GFLOP. Made
+// pixel by pixel from scores and column taps in global memory, with both
+// row lerps per pixel, it would issue ~270 M scalar loads for those 33.5 MB
+// and be bound by load instructions. So:
+//   - one CTA per (band of output rows, image); the band's source score rows
+//     go to shared memory once;
+//   - the row lerp of every output row of the band is made once per source
+//     column (w values per row, not 2 per pixel) into shared memory;
+//   - a thread owns 16 consecutive output columns: their 16 column taps
+//     (lo | hi << 16, w0, w1) sit in its registers for all the band's rows,
+//     so a pixel costs two shared-memory reads and one lerp; the 16 bytes go
+//     out in one 16-byte store.
+// The band plan (rows per band, the most source rows a band reads, shared
+// bytes, block shape) is made on the host: ops/kernels/decoder.py::
+// mask_decode_plan, which the CPU tests check and emulate.
 //
 // Arithmetic: the row lerp, then the column lerp, each w0*a + w1*b with
 // the weights of _interp_matrix (float64 on the host, cast to float32).
-// __fmul_rn/__fadd_rn keep nvcc from contracting them into an FMA, so the
-// result is bit-equal to the plain PyTorch version (ops/kernels/decoder.py),
-// which computes the same products and sums in the same order.
+// __fmul_rn/__fadd_rn keep nvcc from contracting them into an FMA. A row-
+// lerped value is the same number whether it is made once per column or once
+// per pixel, so the result is bit-equal to the plain PyTorch version
+// (ops/kernels/decoder.py), which computes the same products and sums in the
+// same order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,44 +45,79 @@ __device__ __forceinline__ float lerp2(float w0, float a, float w1, float b) {
   return __fadd_rn(__fmul_rn(w0, a), __fmul_rn(w1, b));
 }
 
-__global__ void mask_decode_kernel(const float* __restrict__ score,
-                                   const int* __restrict__ lo_h,
-                                   const int* __restrict__ hi_h,
-                                   const float* __restrict__ w0_h,
-                                   const float* __restrict__ w1_h,
-                                   const int* __restrict__ lo_w,
-                                   const int* __restrict__ hi_w,
-                                   const float* __restrict__ w0_w,
-                                   const float* __restrict__ w1_w,
-                                   uint8_t* __restrict__ out, int B, int h,
-                                   int w, int H, int W) {
-  const int groups = (W + kPix - 1) / kPix;
-  const long long total = (long long)B * H * groups;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const int g = (int)(t % groups);
-    const long long bi = t / groups;  // b * H + i
-    const int i = (int)(bi % H);
-    const int b = (int)(bi / H);
-    const float* img = score + (long long)b * h * w;
-    const float* top = img + (long long)lo_h[i] * w;
-    const float* bot = img + (long long)hi_h[i] * w;
-    const float a0 = w0_h[i], a1 = w1_h[i];
-    const int j0 = g * kPix;
-    uint8_t* orow = out + bi * W;
-    alignas(16) uint8_t m[kPix];
+// the column taps of output columns 16 g .. 16 g + 15 (clamped to W - 1)
+__device__ __forceinline__ void load_col_taps(const int* __restrict__ lo_w,
+                                              const int* __restrict__ hi_w,
+                                              const float* __restrict__ w0_w,
+                                              const float* __restrict__ w1_w, int g, int W,
+                                              int (&lh)[kPix], float (&a0)[kPix],
+                                              float (&a1)[kPix]) {
 #pragma unroll
-    for (int p = 0; p < kPix; ++p) {
-      const int j = min(j0 + p, W - 1);
-      const int l = lo_w[j], r = hi_w[j];
-      const float rl = lerp2(a0, top[l], a1, bot[l]);
-      const float rr = lerp2(a0, top[r], a1, bot[r]);
-      m[p] = lerp2(w0_w[j], rl, w1_w[j], rr) > 0.0f ? 1 : 0;
-    }
-    if (j0 + kPix <= W && ((uintptr_t)(orow + j0) & 15) == 0) {
-      *reinterpret_cast<uint4*>(orow + j0) = *reinterpret_cast<const uint4*>(m);
-    } else {
-      for (int p = 0; p < kPix && j0 + p < W; ++p) orow[j0 + p] = m[p];
+  for (int p = 0; p < kPix; ++p) {
+    const int j = min(g * kPix + p, W - 1);
+    lh[p] = __ldg(lo_w + j) | (__ldg(hi_w + j) << 16);
+    a0[p] = __ldg(w0_w + j);
+    a1[p] = __ldg(w1_w + j);
+  }
+}
+
+// grid (bands, B), block (gx, gy): gx threads across column groups of 16,
+// gy across the band's rows. Shared: the band's source rows (src_rows x w)
+// and its row-lerped rows (band_rows x w), float32. The first column group's
+// taps are loaded before the staging, so their latency overlaps it.
+__global__ void __launch_bounds__(256, 3)
+mask_decode_kernel(const float* __restrict__ score, const int* __restrict__ lo_h,
+                   const int* __restrict__ hi_h, const float* __restrict__ w0_h,
+                   const float* __restrict__ w1_h, const int* __restrict__ lo_w,
+                   const int* __restrict__ hi_w, const float* __restrict__ w0_w,
+                   const float* __restrict__ w1_w, uint8_t* __restrict__ out, int h,
+                   int w, int H, int W, int band_rows, int src_rows) {
+  extern __shared__ float dec_smem[];
+  float* src = dec_smem;                   // src_rows x w
+  float* rl = dec_smem + src_rows * w;     // band_rows x w
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * band_rows;
+  const int rows = min(band_rows, H - r0);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  const int groups = (W + kPix - 1) / kPix;
+
+  int lh[kPix];  // lo | hi << 16
+  float a0[kPix], a1[kPix];
+  if (threadIdx.x < groups) load_col_taps(lo_w, hi_w, w0_w, w1_w, threadIdx.x, W, lh, a0, a1);
+
+  const int s0 = lo_h[r0];
+  const int ns = hi_h[r0 + rows - 1] - s0 + 1;  // lo, hi are nondecreasing
+  const float* img = score + ((long long)b * h + s0) * w;
+  for (int i = tid; i < ns * w; i += nthr) src[i] = img[i];
+  __syncthreads();
+  for (int i = tid; i < rows * w; i += nthr) {
+    const int r = i / w, c = i - r * w;
+    const int oi = r0 + r;
+    rl[i] = lerp2(w0_h[oi], src[(lo_h[oi] - s0) * w + c], w1_h[oi],
+                  src[(hi_h[oi] - s0) * w + c]);
+  }
+  __syncthreads();
+
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    if (g != threadIdx.x) load_col_taps(lo_w, hi_w, w0_w, w1_w, g, W, lh, a0, a1);
+    const int j0 = g * kPix;
+    const bool vec = j0 + kPix <= W && (W & 15) == 0;
+    for (int r = threadIdx.y; r < rows; r += blockDim.y) {
+      const float* v = rl + r * w;
+      unsigned pk[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        if (lerp2(a0[p], v[lh[p] & 0xffff], a1[p], v[lh[p] >> 16]) > 0.0f)
+          pk[p >> 2] |= 1u << (8 * (p & 3));
+      }
+      uint8_t* orow = out + ((long long)b * H + r0 + r) * W;
+      if (vec) {
+        *reinterpret_cast<uint4*>(orow + j0) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      } else {
+        for (int p = 0; p < kPix && j0 + p < W; ++p)
+          orow[j0 + p] = (uint8_t)((pk[p >> 2] >> (8 * (p & 3))) & 1u);
+      }
     }
   }
 }
@@ -317,22 +364,32 @@ __global__ void upsample2x_add_kernel(const T* __restrict__ high,
 
 }  // namespace
 
+// band_rows, src_rows, gx, gy: the host's band plan (mask_decode_plan).
+// out must be 16-byte aligned when W % 16 == 0.
 extern "C" int mtg_fused_mask_decode(const void* score, const void* lo_h,
                                      const void* hi_h, const void* w0_h,
                                      const void* w1_h, const void* lo_w,
                                      const void* hi_w, const void* w0_w,
                                      const void* w1_w, void* out, int B, int h,
-                                     int w, int H, int W, void* stream) {
-  const long long total = (long long)B * H * ((W + kPix - 1) / kPix);
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 65535LL * 16) blocks = 65535LL * 16;
-  if (blocks < 1) blocks = 1;
-  mask_decode_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+                                     int w, int H, int W, int band_rows,
+                                     int src_rows, int gx, int gy,
+                                     void* stream) {
+  if (B < 1 || B > 65535 || band_rows < 1 || src_rows < 1 || gx < 1 || gy < 1 ||
+      gx * gy > 1024 || w > 65535 || ((W & 15) == 0 && ((uintptr_t)out & 15)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)(src_rows + band_rows) * w;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mask_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((H + band_rows - 1) / band_rows, B);
+  mask_decode_kernel<<<grid, dim3(gx, gy), smem, (cudaStream_t)stream>>>(
       (const float*)score, (const int*)lo_h, (const int*)hi_h,
       (const float*)w0_h, (const float*)w1_h, (const int*)lo_w,
       (const int*)hi_w, (const float*)w0_w, (const float*)w1_w,
-      (uint8_t*)out, B, h, w, H, W);
+      (uint8_t*)out, h, w, H, W, band_rows, src_rows);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,8 @@ the counts, run a path, and see which kernels the path went through.
 
 The build, the binding of a function's argument types and the counts are
 guarded by locks: a threaded server may send two first requests at once.
+``sm_count`` gives a card's multiprocessor count, by which the launch plans
+size their grids.
 """
 
 from __future__ import annotations
@@ -121,6 +123,19 @@ def bind(source: str, fn: str, argtypes: List) -> ctypes._CFuncPtr:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The multiprocessor count of CUDA ``device`` (cached)."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNTS[idx]
 
 
 def stream_ptr(t) -> int:

@@ -16,6 +16,7 @@ to the kernel, which the wrapper takes only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Tuple
 
@@ -26,7 +27,7 @@ from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
 from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_taps
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 10 + [_I] * 5 + [_P]
+_ARGS = [_P] * 10 + [_I] * 9 + [_P]
 _HEAD_ARGS = [_P] * 8 + [_I] * 13 + [_P]
 _UP_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 _BAND_ROWS = 64  # output rows per CTA of the head decode
@@ -60,6 +61,31 @@ def fused_mask_decode_plain(scores: torch.Tensor, out_h: int, out_w: int) -> tor
     return (_lerp_taps(scores.float(), out_h, out_w) > 0.0).to(torch.uint8)
 
 
+@functools.lru_cache(maxsize=64)
+def mask_decode_plan(b: int, h: int, w: int, out_h: int, out_w: int,
+                     sm_count: int) -> Dict[str, int]:
+    """The mask decode's launch plan: output rows per CTA (128, halved down
+    to 8 while the grid has fewer than two CTAs per SM), the band count, the
+    most source rows one band reads (the half-pixel taps are nondecreasing,
+    so a band reads rows lo[first] .. hi[last]), the shared-memory bytes
+    (those rows and the band's row-lerped rows, float32) and the block
+    shape: ``gx`` threads across the 16-pixel column groups, ``gy`` across
+    rows, 128 threads (more CTAs per SM). ``sm_count`` is the card's
+    multiprocessor count."""
+    lo, hi, _, _ = _interp_taps(h, out_h)
+    band_rows = 128
+    while band_rows > 8 and b * -(-out_h // band_rows) < 2 * sm_count:
+        band_rows //= 2
+    starts = np.arange(0, out_h, band_rows)
+    ends = np.minimum(starts + band_rows, out_h) - 1
+    src_rows = int((hi[ends] - lo[starts]).max()) + 1
+    groups = -(-out_w // 16)
+    gx = min(groups, 32)
+    return {"band_rows": band_rows, "n_bands": len(starts), "src_rows": src_rows,
+            "smem_bytes": 4 * (src_rows + band_rows) * w, "gx": gx, "gy": max(1, 128 // gx),
+            "groups": groups}
+
+
 def fused_mask_decode(scores: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(B, h, w) float32 -> (B, out_h, out_w) uint8 {0,1}. Launches the
     CUDA kernel for a CUDA tensor; a CPU tensor takes the plain version."""
@@ -71,13 +97,15 @@ def fused_mask_decode(scores: torch.Tensor, out_h: int, out_w: int) -> torch.Ten
         raise ValueError(f"want (B, h, w) float32, got {tuple(scores.shape)} {scores.dtype}")
     scores = scores.contiguous()
     b, h, w = scores.shape
+    plan = mask_decode_plan(b, h, w, out_h, out_w, _build.sm_count(scores.device))
     taps_h = interp_taps(h, out_h, scores.device)
     taps_w = interp_taps(w, out_w, scores.device)
     out = torch.empty((b, out_h, out_w), dtype=torch.uint8, device=scores.device)
     fn = _build.bind("decoder", "mtg_fused_mask_decode", _ARGS)
     err = fn(scores.data_ptr(), *(t.data_ptr() for t in taps_h),
              *(t.data_ptr() for t in taps_w), out.data_ptr(),
-             b, h, w, out_h, out_w, _build.stream_ptr(scores))
+             b, h, w, out_h, out_w, plan["band_rows"], plan["src_rows"], plan["gx"],
+             plan["gy"], _build.stream_ptr(scores))
     _build.check(err, "fused_mask_decode")
     _build.count("fused_mask_decode")
     return out

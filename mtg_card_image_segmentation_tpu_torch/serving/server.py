@@ -26,14 +26,19 @@ calls a model for the first time pays for them, many times what a
 single-image call itself costs (PERF.md has the readings), so a thread per
 request must not touch the device. The predictors are built and warmed on that
 thread (kernels built, per-shape tables filled, handles made) before the
-socket is served. Checkpoints are the port's own format
-(``training/checkpoint.py``).
+socket is served. Then the objects the process holds are collected once and
+frozen (``gc.freeze``), so that a full garbage collection while serving scans
+only what was made since: otherwise one such collection in a process with a
+large heap stalls every request in flight for hundreds of milliseconds
+(PERF.md has the readings). ``shutdown`` unfreezes them. Checkpoints are the port's own
+format (``training/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import base64
 import concurrent.futures
+import gc
 import json
 import os
 import queue
@@ -312,6 +317,8 @@ class DemoServer:
         served = [p if p is None else OnInferenceThread(p, self.inference)
                   for p in (self.predictor, self.pose_predictor)]
         self.warm_seconds = self._warm(*served)
+        gc.collect()
+        gc.freeze()
         handler = make_handler(
             os.path.abspath(demo_dir), os.path.abspath(models_dir),
             served[0], self.model_hw, served[1], self.pose_hw, self.codec,
@@ -345,6 +352,7 @@ class DemoServer:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.inference.close()
+        gc.unfreeze()  # what the server held can be collected again
 
 
 def main() -> None:

@@ -491,6 +491,30 @@ def test_demo_server_starts_from_checkpoints(checkpoints, tmp_path):
                    device="cpu")
 
 
+def test_demo_server_freezes_the_heap_while_it_serves(checkpoints, tmp_path):
+    """After warm-up the server collects once and freezes what the process
+    holds, so that a full collection while serving scans only newer
+    objects; ``shutdown`` unfreezes, and a stopped server's predictor can
+    then be collected (a frozen reference cycle would keep it for good)."""
+    import gc
+    import weakref
+
+    root, _, _ = checkpoints
+    gc.unfreeze()
+    srv = DemoServer(str(tmp_path), str(tmp_path), port=0, checkpoint=str(root / "seg"),
+                     height=SEG_HW[0], width=SEG_HW[1], host="127.0.0.1", device="cpu")
+    srv.start_background()
+    try:
+        assert gc.get_freeze_count() > 0
+        predictor = weakref.ref(srv.predictor)
+    finally:
+        srv.shutdown()
+    assert gc.get_freeze_count() == 0
+    del srv
+    gc.collect()
+    assert predictor() is None
+
+
 def test_predictor_calls_run_on_one_inference_thread():
     """Calls from several request threads all run on the one inference
     thread, in turn (a stub that is not re-entrant sees no overlap), results
