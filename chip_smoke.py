@@ -9,8 +9,11 @@ PyTorch version on the card at the main paths' shapes (the block kernels
 also at the server's one-image and two-image 20x15 maps, where a 128-row
 GEMM tile spans two images with different SE gates, and the GEMM on its own
 at K and N of 472; the tail chain's four kernels timed one by one beside
-their byte floors, ``fused_tail_chain_steps``), then drives the main paths
-with random weights from a seed:
+their byte floors, ``fused_tail_chain_steps``; the stem also at 320x240 b128
+and b1, at 40x24, whose 72-byte rows take the kernel's 4-byte load path,
+and on 1- and 2-image slices of the b128 batch, bit for bit; the head decode
+also at 320x240 b128 and b1 from that predictor's features and at a ragged
+160x128), then drives the main paths with random weights from a seed:
 
 - ``SegPredictor.predict`` at 512x512 with the full-width MobileNetV3-Large +
   LR-ASPP, its masks checked against the port's own CPU predictor and against
@@ -42,8 +45,9 @@ It also profiles a few b128 ``predict`` calls of the three
 predictors: device time by kernel class and the card's idle share.
 
 Every phase prints one JSON line (the redesigned kernels' lines carry
-``prev_ms_pr3_recorded``, their time before the redesign as recorded from
-an earlier run of this script, not measured here; the chain's line and
+``prev_ms_pr3_recorded`` or ``prev_ms_pr4_recorded``, their time before
+the redesign as recorded from an earlier run of this script, not measured
+here; the chain's line and
 ``fused_tail_chain_steps`` carry ``floor_b_ms``, the byte floor of its
 design). Then come the kernels' summary line (every number in it measured
 or computed in this run), the
@@ -89,6 +93,10 @@ STENCIL_TOL = (4e-5, 1e-6)
 # prev_ms_pr3_recorded
 PREV_MS = {"fused_mask_decode": 0.300, "fused_tail_chain": 7.141,
            "fused_inverted_residual": 2.633}
+# the same, for the kernels redesigned or changed after that run, from the
+# run that preceded their change (same card and shapes), printed as
+# prev_ms_pr4_recorded
+PREV_MS_PR4 = {"fused_mask_decode": 0.0418, "fused_stem": 0.552, "fused_head_decode": 0.341}
 
 
 def emit(obj) -> None:
@@ -301,6 +309,7 @@ def phase_kernels(torch, weights):
     emit({"phase": "kernel", "name": "fused_mask_decode", "shape": [b, h, h],
           "plan": dec.mask_decode_plan(b, h, h, SIZE, SIZE, _build.sm_count(dev)),
           "prev_ms_pr3_recorded": PREV_MS["fused_mask_decode"],
+          "prev_ms_pr4_recorded": PREV_MS_PR4["fused_mask_decode"],
           "out": [b, SIZE, SIZE], "exact": True, "agreement_with_library": lib_agree,
           **rows["fused_mask_decode"]})
 
@@ -695,20 +704,48 @@ def phase_io_kernels(torch, weights, rng):
     torch.cuda.empty_cache()
 
     # -- fused_stem: (128, 512, 512, 3) with the predictor's folded weights --
+    # The kernel sums its 27 products on the tensor cores, in another order
+    # than the plain version's (ky, kx, c): a bf16 output whose float32 sum
+    # lies within float32 rounding of a tie rounds the other way. Gate: one
+    # bf16 ulp at the output's largest magnitude, mean|d| < 0.01.
     pred = SegPredictor(*weights, SIZE, SIZE, fused_stem=True)
+    ops = pred._stem
+
+    def stem_case(imgs, out_dtype=bf16):
+        _build.reset_launches()
+        got = stem_k.apply_stem(imgs, ops, out_dtype)
+        counts = dict(_build.LAUNCHES)
+        want = stem_k.apply_stem_plain(imgs, ops, out_dtype)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        ref_max = float(want.float().abs().max())
+        # float32 out: the two sums' rounding, at most a few float32 ulps of
+        # the largest partial sum
+        tol = bf16_ulp(ref_max) if out_dtype == bf16 else 2.0 ** -20 * ref_max
+        rec = {"shape": list(imgs.shape), "out": str(out_dtype).split(".")[-1],
+               "max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+               "differing_values": int((d > 0).sum()), "max_abs_ref": ref_max, "tol": tol,
+               "launches": counts}
+        if tuple(got.shape) != (imgs.shape[0], imgs.shape[1] // 2, imgs.shape[2] // 2, 16) \
+                or got.dtype != out_dtype or counts != {"fused_stem": 1} \
+                or rec["max_abs_err"] > tol or rec["mean_abs_err"] >= 0.01:
+            fail(f"fused_stem against its plain version: {rec}")
+        return got, rec
+
     imgs = torch.from_numpy(rng.integers(0, 256, (b, SIZE, SIZE, 3), np.uint8)).to(dev)
-    kernel, bias = pred._stem
-    got = stem_k.fused_stem(imgs, kernel, bias, pred._center, bf16)
-    want = stem_k.fused_stem_plain(imgs, kernel, bias, pred._center, bf16)
-    torch.cuda.synchronize()
-    d = (got.float() - want.float()).abs()
-    ref_max = float(want.float().abs().max())
-    ulp = bf16_ulp(ref_max)
-    err, mean_err, differing = float(d.max()), float(d.mean()), int((d > 0).sum())
-    del d, want
-    if err > ulp or mean_err >= 0.01:
-        fail(f"fused_stem: max|d| {err} > one bf16 ulp {ulp} at |out| <= {ref_max}, "
-             f"or mean|d| {mean_err} >= 0.01")
+    got, main_rec = stem_case(imgs)
+    # each image's result does not depend on the batch or on which CTA made
+    # it: the kernel on 1- and 2-image slices, bit for bit
+    parts = torch.cat([stem_k.apply_stem(imgs[i:j].contiguous(), ops)
+                       for i, j in ((0, 1), (1, 3), (3, 4), (b - 2, b))])
+    if not torch.equal(parts, torch.cat([got[:4], got[b - 2:]])):
+        fail("fused_stem: the kernel on 1- and 2-image slices differs from the b128 run")
+    cases = []
+    for shape, dt in (((b, *SERVER_HW), bf16), ((1, *SERVER_HW), bf16), ((2, 40, 24), bf16),
+                      ((2, 40, 24), torch.float32)):
+        small = torch.from_numpy(rng.integers(0, 256, (*shape, 3), np.uint8)).to(dev)
+        cases.append(stem_case(small, dt)[1])
+        del small
     stem_mod = pred.model.backbone.stem
 
     def stem_library():  # center, cuDNN conv, bias, hardswish
@@ -717,38 +754,71 @@ def phase_io_kernels(torch, weights, rng):
 
     lib_err = float((stem_library().float() - got.float()).abs().max())
     ho = SIZE // 2
-    bnd, by = bound(imgs.numel() + b * ho * ho * 16 * 2 + 27 * 16 * 4,
-                    fp32_flops=b * ho * ho * 16 * (2 * 27 + 5))
-    ms, count = timed_launches(
-        "fused_stem", lambda: stem_k.fused_stem(imgs, kernel, bias, pred._center, bf16), 20)
+    # the 27 products per output value on the tensor cores, bias and
+    # hardswish (5 fp32 operations) per output value on the CUDA cores
+    bnd, by = bound(imgs.numel() + b * ho * ho * 16 * 2 + 16 * 16 * 4 + 16 * 4 + 3 * 4,
+                    tensor_flops=b * ho * ho * 16 * 2 * 27, fp32_flops=b * ho * ho * 16 * 5)
+    ms, count = timed_launches("fused_stem", lambda: stem_k.apply_stem(imgs, ops, bf16), 20)
     rows["fused_stem"] = {
         "ms": ms,
-        "plain_ms": cuda_ms(lambda: stem_k.fused_stem_plain(imgs, kernel, bias,
-                                                            pred._center, bf16), 2, 1),
+        "plain_ms": cuda_ms(lambda: stem_k.apply_stem_plain(imgs, ops, bf16), 2, 1),
         "library_ms": cuda_ms(stem_library, 10), "bound_ms": bnd, "bound_by": by,
-        "max_abs_err": err}
+        "max_abs_err": main_rec["max_abs_err"]}
     emit({"phase": "kernel", "name": "fused_stem", "shape": list(imgs.shape),
-          "out": list(got.shape), "mean_abs_err": mean_err, "differing_values": differing,
-          "max_abs_ref": ref_max, "one_bf16_ulp": ulp, "library_max_abs_err": lib_err,
-          "launches": count, **rows["fused_stem"]})
-    del got
+          "out": list(got.shape), "mean_abs_err": main_rec["mean_abs_err"],
+          "differing_values": main_rec["differing_values"], "max_abs_ref": main_rec["max_abs_ref"],
+          "one_bf16_ulp": main_rec["tol"], "library_max_abs_err": lib_err,
+          "batch_split_exact": True, "cases": cases, "launches": count,
+          "prev_ms_pr4_recorded": PREV_MS_PR4["fused_stem"], **rows["fused_stem"]})
+    del got, parts
     torch.cuda.empty_cache()
 
     # -- fused_head_decode at b128 with the predictor's real x, gw, low ------
-    with torch.inference_mode():
-        x = (imgs.float() - pred._center).to(bf16)
-        taps = seg._fused_backbone(pred.model.backbone, x, pred._tail)
-        low = taps["low"].contiguous()
-        feats, gw, w_lo, bias_d = seg._head_gated(pred.model.head, taps["high"],
-                                                  pred._head_vectors)
-        feats = feats.contiguous()
-        del x, taps
-        got = dec.fused_head_decode(feats, gw, low, w_lo, bias_d, SIZE, SIZE)
-        want = dec.fused_head_decode_plain(feats, gw, low, w_lo, bias_d, SIZE, SIZE)
+    def head_features(p, images):
+        """The head decode's inputs as predictor ``p`` makes them."""
+        x = (images.float() - p._center).to(bf16)
+        taps = seg._fused_backbone(p.model.backbone, x, p._tail)
+        feats, gw, w_lo, bias_d = seg._head_gated(p.model.head, taps["high"], p._head_vectors)
+        return feats.contiguous(), gw, taps["low"].contiguous(), w_lo, bias_d
+
+    def head_case(feats, gw, low, w_lo, bias_d, out_h, out_w, what):
+        """The kernel against its plain version, bit for bit, one launch."""
+        _build.reset_launches()
+        got = dec.fused_head_decode(feats, gw, low, w_lo, bias_d, out_h, out_w)
+        counts = dict(_build.LAUNCHES)
+        want = dec.fused_head_decode_plain(feats, gw, low, w_lo, bias_d, out_h, out_w)
         torch.cuda.synchronize()
         mismatches = int((got != want).sum())
-        if mismatches:
-            fail(f"fused_head_decode differs from its plain version on {mismatches} pixels")
+        if mismatches or counts != {"fused_head_decode": 1} \
+                or tuple(got.shape) != (feats.shape[0], out_h, out_w):
+            fail(f"fused_head_decode {what}: {mismatches} pixels differ from its plain "
+                 f"version, launches {counts}, shape {tuple(got.shape)}")
+        return got, {"what": what, "x": list(feats.shape), "low": list(low.shape),
+                     "out": [out_h, out_w], "differing_pixels": mismatches,
+                     "max_abs_err": float((got.float() - want.float()).abs().max()),
+                     "foreground_fraction": float(got.float().mean()), "launches": counts}
+
+    with torch.inference_mode():
+        feats, gw, low, w_lo, bias_d = head_features(pred, imgs)
+        got, main_rec = head_case(feats, gw, low, w_lo, bias_d, SIZE, SIZE, "b128 512x512")
+        cases = []
+        # the server's size from its own predictor's features, b128 and b1
+        pred320 = SegPredictor(*weights, *SERVER_HW)
+        f320 = head_features(pred320, imgs[:, :SERVER_HW[0], :SERVER_HW[1]].contiguous())
+        cases.append(head_case(*f320, *SERVER_HW, "b128 320x240")[1])
+        cases.append(head_case(*(t[:1].contiguous() if t.dim() > 1 else t for t in f320[:3]),
+                               f320[3], f320[4], *SERVER_HW, "b1 320x240")[1])
+        del f320, pred320
+        # a ragged case: bands that end inside the image, 8-column groups
+        small = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                 for s in ((2, 10, 8, 24), (2, 24), (2, 20, 16, 16), (16,))]
+        cases.append(head_case(small[0].to(bf16), small[1], small[2].to(bf16), small[3],
+                               torch.tensor(0.17, device=dev), 160, 128, "ragged 160x128")[1])
+        # a mask that only the plain version's summation order leaves empty
+        tree = head_case(*dec.tree_order_case(dev), "tree order 160x128")
+        if int(tree[0].sum()):
+            fail("fused_head_decode: the tree-order case's mask is not empty")
+        cases.append(tree[1])
 
         def head_library():  # the stock einsum score, F.interpolate, threshold
             hs = torch.einsum("bhwc,bc->bhw", feats.float(), gw)
@@ -764,6 +834,8 @@ def phase_io_kernels(torch, weights, rng):
         bnd, by = bound(feats.numel() * 2 + low.numel() * 2 + gw.numel() * 4 + b * SIZE * SIZE,
                         fp32_flops=2 * b * (h16 * h16 * c + h8 * h8 * cl)
                         + 9 * b * h8 * h8 + 3 * b * SIZE * (h8 + SIZE))
+        plan = dec.head_decode_plan(b, h16, h16, c, h8, h8, cl, SIZE, SIZE,
+                                    _build.sm_count(dev))
         ms, count = timed_launches(
             "fused_head_decode",
             lambda: dec.fused_head_decode(feats, gw, low, w_lo, bias_d, SIZE, SIZE), 20)
@@ -772,13 +844,15 @@ def phase_io_kernels(torch, weights, rng):
             "plain_ms": cuda_ms(lambda: dec.fused_head_decode_plain(
                 feats, gw, low, w_lo, bias_d, SIZE, SIZE), 3, 1),
             "library_ms": cuda_ms(head_library, 10), "bound_ms": bnd, "bound_by": by,
-            "max_abs_err": float((got.float() - want.float()).abs().max())}
+            "max_abs_err": main_rec["max_abs_err"]}
     emit({"phase": "kernel", "name": "fused_head_decode", "x": list(feats.shape),
           "low": list(low.shape), "out": list(got.shape), "exact": True,
           "foreground_fraction": float(got.float().mean()),
-          "agreement_with_library": lib_agree, "launches": count,
+          "agreement_with_library": lib_agree, "cases": cases,
+          "plan": {k: v for k, v in plan.items() if k != "bands"}, "launches": count,
+          "prev_ms_pr4_recorded": PREV_MS_PR4["fused_head_decode"],
           **rows["fused_head_decode"]})
-    del imgs, feats, low, got, want, pred
+    del imgs, feats, low, got, pred
     torch.cuda.empty_cache()
 
     # -- upsample2x_add at the head-merge shape (128,32,32,128)+(128,64,64,128)

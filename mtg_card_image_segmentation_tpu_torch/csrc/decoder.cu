@@ -21,7 +21,10 @@
 //     (lo | hi << 16, w0, w1) sit in its registers for all the band's rows,
 //     so a pixel costs two shared-memory reads and one lerp; the 16 bytes go
 //     out in one 16-byte store.
-// The band plan (rows per band, the most source rows a band reads, shared
+// The row lerp reads each output row's two source rows and weights from a
+// table staged in shared memory (one 16-byte read, not four global ones).
+// These band stages (stage_taps, band_row_lerp, band_col_store) are shared
+// with the head decode below. The band plan (rows per band, the most source rows a band reads, shared
 // bytes, block shape) is made on the host: ops/kernels/decoder.py::
 // mask_decode_plan, which the CPU tests check and emulate.
 //
@@ -61,10 +64,83 @@ __device__ __forceinline__ void load_col_taps(const int* __restrict__ lo_w,
   }
 }
 
+// A lerp's two taps: offsets of the two source rows (or columns) and their
+// weights, staged in shared memory so the lerp loops read one 16-byte value
+// instead of four global ones.
+struct __align__(16) LerpTap {
+  int a, b;
+  float w0, w1;
+};
+
+// taps[i] for outputs o0 .. o0 + n - 1: source offsets (lo - s0) * stride,
+// (hi - s0) * stride
+__device__ __forceinline__ void stage_taps(LerpTap* taps, int o0, int n, int s0, int stride,
+                                           const int* __restrict__ lo,
+                                           const int* __restrict__ hi,
+                                           const float* __restrict__ w0,
+                                           const float* __restrict__ w1, int tid, int nthr) {
+  for (int i = tid; i < n; i += nthr) {
+    const int o = o0 + i;
+    taps[i] = {(__ldg(lo + o) - s0) * stride, (__ldg(hi + o) - s0) * stride, __ldg(w0 + o),
+               __ldg(w1 + o)};
+  }
+}
+
+// The band's rows, row-lerped once per source column: rl (rows x w) from
+// src with the rows' staged taps. Thread tid of nthr.
+__device__ __forceinline__ void band_row_lerp(const float* src, int w, int rows,
+                                              const LerpTap* row_taps, float* rl, int tid,
+                                              int nthr) {
+  for (int i = tid; i < rows * w; i += nthr) {
+    const int r = i / w, c = i - r * w;
+    const LerpTap t = row_taps[r];
+    rl[i] = lerp2(t.w0, src[t.a + c], t.w1, src[t.b + c]);
+  }
+}
+
+// The band's column lerp, threshold and stores: thread (tx, ty) of a gx x gy
+// grid owns column groups tx, tx + gx, ... (16 pixels each, their taps in
+// registers) on rows ty, ty + gy, ...; one 16-byte store per 16 pixels
+// (out_band 16-byte aligned when W % 16 == 0). kPreloaded: lh, a0, a1
+// already hold group tx's taps.
+template <bool kPreloaded>
+__device__ __forceinline__ void band_col_store(const float* rl, int rows, int w,
+                                               uint8_t* __restrict__ out_band, int W,
+                                               const int* __restrict__ lo_w,
+                                               const int* __restrict__ hi_w,
+                                               const float* __restrict__ w0_w,
+                                               const float* __restrict__ w1_w, int tx, int ty,
+                                               int gx, int gy, int (&lh)[kPix],
+                                               float (&a0)[kPix], float (&a1)[kPix]) {
+  const int groups = (W + kPix - 1) / kPix;
+  for (int g = tx; g < groups; g += gx) {
+    if (!kPreloaded || g != tx) load_col_taps(lo_w, hi_w, w0_w, w1_w, g, W, lh, a0, a1);
+    const int j0 = g * kPix;
+    const bool vec = j0 + kPix <= W && (W & 15) == 0;
+    for (int r = ty; r < rows; r += gy) {
+      const float* v = rl + r * w;
+      unsigned pk[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        if (lerp2(a0[p], v[lh[p] & 0xffff], a1[p], v[lh[p] >> 16]) > 0.0f)
+          pk[p >> 2] |= 1u << (8 * (p & 3));
+      }
+      uint8_t* orow = out_band + (long long)r * W;
+      if (vec) {
+        *reinterpret_cast<uint4*>(orow + j0) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      } else {
+        for (int p = 0; p < kPix && j0 + p < W; ++p)
+          orow[j0 + p] = (uint8_t)((pk[p >> 2] >> (8 * (p & 3))) & 1u);
+      }
+    }
+  }
+}
+
 // grid (bands, B), block (gx, gy): gx threads across column groups of 16,
-// gy across the band's rows. Shared: the band's source rows (src_rows x w)
-// and its row-lerped rows (band_rows x w), float32. The first column group's
-// taps are loaded before the staging, so their latency overlaps it.
+// gy across the band's rows. Shared: the band's row taps (band_rows), source
+// rows (src_rows x w) and row-lerped rows (band_rows x w), float32. The
+// first column group's taps are loaded before the staging, so their latency
+// overlaps it.
 __global__ void __launch_bounds__(256, 3)
 mask_decode_kernel(const float* __restrict__ score, const int* __restrict__ lo_h,
                    const int* __restrict__ hi_h, const float* __restrict__ w0_h,
@@ -72,9 +148,10 @@ mask_decode_kernel(const float* __restrict__ score, const int* __restrict__ lo_h
                    const int* __restrict__ hi_w, const float* __restrict__ w0_w,
                    const float* __restrict__ w1_w, uint8_t* __restrict__ out, int h,
                    int w, int H, int W, int band_rows, int src_rows) {
-  extern __shared__ float dec_smem[];
-  float* src = dec_smem;                   // src_rows x w
-  float* rl = dec_smem + src_rows * w;     // band_rows x w
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  LerpTap* row_taps = reinterpret_cast<LerpTap*>(dec_smem);     // band_rows
+  float* src = reinterpret_cast<float*>(row_taps + band_rows);  // src_rows x w
+  float* rl = src + src_rows * w;                               // band_rows x w
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * band_rows;
   const int rows = min(band_rows, H - r0);
@@ -84,42 +161,19 @@ mask_decode_kernel(const float* __restrict__ score, const int* __restrict__ lo_h
 
   int lh[kPix];  // lo | hi << 16
   float a0[kPix], a1[kPix];
-  if (threadIdx.x < groups) load_col_taps(lo_w, hi_w, w0_w, w1_w, threadIdx.x, W, lh, a0, a1);
+  if (threadIdx.x < groups)
+    load_col_taps(lo_w, hi_w, w0_w, w1_w, threadIdx.x, W, lh, a0, a1);
 
   const int s0 = lo_h[r0];
   const int ns = hi_h[r0 + rows - 1] - s0 + 1;  // lo, hi are nondecreasing
   const float* img = score + ((long long)b * h + s0) * w;
   for (int i = tid; i < ns * w; i += nthr) src[i] = img[i];
+  stage_taps(row_taps, r0, rows, s0, w, lo_h, hi_h, w0_h, w1_h, tid, nthr);
   __syncthreads();
-  for (int i = tid; i < rows * w; i += nthr) {
-    const int r = i / w, c = i - r * w;
-    const int oi = r0 + r;
-    rl[i] = lerp2(w0_h[oi], src[(lo_h[oi] - s0) * w + c], w1_h[oi],
-                  src[(hi_h[oi] - s0) * w + c]);
-  }
+  band_row_lerp(src, w, rows, row_taps, rl, tid, nthr);
   __syncthreads();
-
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    if (g != threadIdx.x) load_col_taps(lo_w, hi_w, w0_w, w1_w, g, W, lh, a0, a1);
-    const int j0 = g * kPix;
-    const bool vec = j0 + kPix <= W && (W & 15) == 0;
-    for (int r = threadIdx.y; r < rows; r += blockDim.y) {
-      const float* v = rl + r * w;
-      unsigned pk[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int p = 0; p < kPix; ++p) {
-        if (lerp2(a0[p], v[lh[p] & 0xffff], a1[p], v[lh[p] >> 16]) > 0.0f)
-          pk[p >> 2] |= 1u << (8 * (p & 3));
-      }
-      uint8_t* orow = out + ((long long)b * H + r0 + r) * W;
-      if (vec) {
-        *reinterpret_cast<uint4*>(orow + j0) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      } else {
-        for (int p = 0; p < kPix && j0 + p < W; ++p)
-          orow[j0 + p] = (uint8_t)((pk[p >> 2] >> (8 * (p & 3))) & 1u);
-      }
-    }
-  }
+  band_col_store<true>(rl, rows, w, out + ((long long)b * H + r0) * W, W, lo_w, hi_w, w0_w,
+                       w1_w, threadIdx.x, threadIdx.y, blockDim.x, blockDim.y, lh, a0, a1);
 }
 
 
@@ -134,43 +188,137 @@ mask_decode_kernel(const float* __restrict__ score, const int* __restrict__ lo_h
 // Replaces: mtg_card_image_segmentation_tpu/ops/pallas/decoder.py::
 // fused_head_decode (one grid step per image, the lerps as MXU matmuls).
 //
-// Bound on the H100: memory. At b128, 512x512 it reads 33.6 MB (x) and
+// Bound on the H100: bytes. At b128, 512x512 it reads 33.6 MB (x) and
 // 41.9 MB (low) and writes 33.6 MB, ~0.033 ms at 3.35 TB/s, against 0.5
-// GFLOP. An image's stride-8 score map is 16 KB, so the three stages share
-// one launch through shared memory. One CTA per image would leave the card
-// short of CTAs at small batches, so an image's output rows are split into
-// bands, one CTA each (grid = bands x B); a CTA recomputes the few hs and s
-// rows its band needs (the band table, made on the host from the tap tables,
-// says which). Stage 1 and the low matvec take one pixel per thread and read
-// its channels as 16-byte loads; stage 3 is the mask decode's two-tap gather
-// with 16 pixels per thread and one 16-byte store.
+// GFLOP. The earlier version gave one pixel to one thread and summed its
+// 128 channels as one serial fp32 chain: its loads were 256 bytes apart
+// across a warp, a quarter of the threads idled in stage 1, and it moved
+// ~320 GB/s, bound by latency. So:
+//   - an image's output rows are split into bands of up to 128 rows, one
+//     CTA of 128 threads each (grid = bands x B, four CTAs per SM); the host
+//     plan (ops/kernels/decoder.py::head_decode_plan) sizes the bands from
+//     the SM count and lists the stride-16 (hs) and stride-8 (s) rows each
+//     band reads; the halo re-read is 1.14x at b128;
+//   - stage 1 (x, C = 128) gives a pixel's channels to neighbouring lanes:
+//     lane k of a group of P lanes (P the chunk count C / 8 rounded up to a
+//     power of two) loads chunk k, 8 channels, as one 16-byte load, so a
+//     warp reads whole pixels, contiguous; each lane keeps its chunk's 8
+//     weights in registers, four pixel groups' loads are in flight before
+//     any is summed, and a lane butterfly combines the chunk sums;
+//   - stage 2 (low, Cl = 40: 5 chunks) gives one pixel to one lane, which
+//     loads its 5 chunks at once and combines them in registers: 8 lanes
+//     per pixel would idle 3 of them and leave the 2x lerp and the store to
+//     one lane in 8; the lerp's row and column taps come from tables staged
+//     in shared memory;
+//   - stage 3 is the mask decode's band scheme (stage_taps, band_row_lerp,
+//     band_col_store above): each output row's row lerp once per stride-8
+//     column in shared memory, then 16 column taps per thread in registers
+//     and one 16-byte store per 16 pixels.
+// Timed stage by stage at b128 512x512 on the H100, stages 1 and 2 together
+// take about as long as stage 3, which alone costs what the mask decode
+// does. A persistent variant with producer warps for stages 1-2 and consumer
+// warps for stage 3 (two s buffers between them) was no faster and is not
+// kept.
 //
-// Arithmetic: the channel sums run in ascending channel order in float32,
-// product then sum, each rounded on its own (__fmul_rn/__fadd_rn); the lerps
-// are w0*a + w1*b, rows then columns; s = (up + ls) + bias. The plain PyTorch
-// version does the same operations in the same order, so the two are
-// bit-equal.
+// Arithmetic: a chunk's 8 products are summed in channel order, product then
+// sum, each rounded on its own (__fmul_rn/__fadd_rn); the chunk sums,
+// zero-padded to P, are combined pairwise, p[0::2] + p[1::2], level by level
+// (the lane butterfly, __shfl_xor_sync with offsets 1, 2, 4, ..., computes
+// exactly that, IEEE addition being commutative; stage 2 does the same levels
+// in registers). The lerps are w0*a + w1*b, rows then columns; s = (up + ls)
+// + bias. The plain PyTorch version (ops/kernels/decoder.py::
+// _tree_channel_sum) sums in the same tree order, so the two are bit-equal.
 
-constexpr int kHeadThreads = 256;
+constexpr int kHeadThreads = 128;
+constexpr int kHeadUnroll = 4;  // pixel groups whose loads are in flight at once
 
-// sum_c px[c] * wt[c], c ascending; px: C bf16 values, 16-byte aligned,
-// C % 8 == 0
-__device__ __forceinline__ float dot_bf16_seq(const __nv_bfloat16* px,
-                                              const float* wt, int C) {
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// sum of a chunk's 8 products, channels ascending
+__device__ __forceinline__ float chunk_dot(const uint4 raw, const float (&wt)[8]) {
+  const unsigned wd[4] = {raw.x, raw.y, raw.z, raw.w};
   float acc = 0.0f;
-  for (int c0 = 0; c0 < C; c0 += 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(px + c0);
-    const unsigned wd[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      // a bf16 is the high half of its float32
-      const float lo = __uint_as_float(wd[q] << 16);
-      const float hi = __uint_as_float(wd[q] & 0xffff0000u);
-      acc = __fadd_rn(acc, __fmul_rn(lo, wt[c0 + 2 * q]));
-      acc = __fadd_rn(acc, __fmul_rn(hi, wt[c0 + 2 * q + 1]));
-    }
+  for (int q = 0; q < 4; ++q) {
+    // a bf16 is the high half of its float32
+    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(wd[q] << 16), wt[2 * q]));
+    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(wd[q] & 0xffff0000u), wt[2 * q + 1]));
   }
   return acc;
+}
+
+// The channel sums of n pixels (pixel i's C channels at px + i * C), P lanes
+// per pixel (P = C / 8 chunks rounded up to a power of two), lane k of a
+// group holding chunk k and its weights wt; every lane of the warp takes
+// part. emit(i, sum) runs on lane 0 of pixel i's group.
+template <typename Emit>
+__device__ __forceinline__ void channel_sums(const __nv_bfloat16* __restrict__ px, int C,
+                                             int n, int P, const float (&wt)[8], Emit emit) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = lane & (P - 1), nchunks = C / 8;
+  const int per_warp = 32 / P, step = (kHeadThreads / 32) * per_warp;
+  for (int wbase = warp * per_warp; wbase < n; wbase += step * kHeadUnroll) {
+    uint4 raw[kHeadUnroll];
+#pragma unroll
+    for (int u = 0; u < kHeadUnroll; ++u) {
+      const int i = wbase + u * step + lane / P;
+      raw[u] = i < n && k < nchunks
+                   ? __ldg(reinterpret_cast<const uint4*>(px + (long long)i * C + 8 * k))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kHeadUnroll; ++u) {
+      const int i = wbase + u * step + lane / P;
+      float p = k < nchunks ? chunk_dot(raw[u], wt) : 0.0f;
+      for (int o = 1; o < P; o <<= 1) p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, o));
+      if (k == 0 && i < n) emit(i, p);
+    }
+  }
+}
+
+// The channel sums of n pixels, one pixel per lane (C <= 64: up to 8 chunks
+// loaded at once); the chunk sums' tree runs in registers. wt: the C weights
+// in shared memory (every lane reads the same ones). emit(i, sum) on every
+// lane.
+template <typename Emit>
+__device__ __forceinline__ void channel_sums_per_lane(const __nv_bfloat16* __restrict__ px,
+                                                      int C, int n, const float* wt,
+                                                      Emit emit) {
+  const int nchunks = C / 8;
+  const int P = pow2_at_least(nchunks);
+  for (int i = threadIdx.x; i < n; i += kHeadThreads) {
+    uint4 raw[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      raw[k] = k < nchunks
+                   ? __ldg(reinterpret_cast<const uint4*>(px + (long long)i * C + 8 * k))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    float p[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k < nchunks) {
+        const float4 w0 = *reinterpret_cast<const float4*>(wt + 8 * k);
+        const float4 w1 = *reinterpret_cast<const float4*>(wt + 8 * k + 4);
+        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        p[k] = chunk_dot(raw[k], w);
+      } else {
+        p[k] = 0.0f;
+      }
+    }
+    // the tree over the chunks zero-padded to P, level by level
+#pragma unroll
+    for (int s = 1; s < 8; s <<= 1) {
+      if (s < P) {
+#pragma unroll
+        for (int j = 0; j < 8; j += 2 * s) p[j] = __fadd_rn(p[j], p[j + s]);
+      }
+    }
+    emit(i, p[0]);
+  }
 }
 
 struct Taps {
@@ -181,8 +329,11 @@ struct Taps {
 };
 
 // bands: per band (s8_row0, s8_rows, hs_row0, hs_rows); band k makes output
-// rows [k * band_rows, (k + 1) * band_rows).
-__global__ void __launch_bounds__(kHeadThreads)
+// rows [k * band_rows, (k + 1) * band_rows). Shared, in this order: the taps
+// of the band's output rows (band_rows), of its stride-8 rows (max_s8_rows)
+// and columns (w8); w_lo (64); hs (max_hs_rows x w16), s (max_s8_rows x w8)
+// and the row-lerped rows (band_rows x w8), float32.
+__global__ void __launch_bounds__(kHeadThreads, 4)
 head_decode_kernel(const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ gw,
                    const __nv_bfloat16* __restrict__ low,
@@ -191,73 +342,63 @@ head_decode_kernel(const __nv_bfloat16* __restrict__ x,
                    Taps vw, const int* __restrict__ bands,
                    uint8_t* __restrict__ out, int h16, int w16, int C, int h8,
                    int w8, int Cl, int H, int W, int band_rows, int max_hs_rows,
-                   int max_s8_rows) {
-  extern __shared__ float smem[];
-  float* gw_s = smem;                        // C
-  float* wlo_s = gw_s + C;                   // Cl
-  float* hs_s = wlo_s + Cl;                  // max_hs_rows * w16
-  float* s_s = hs_s + max_hs_rows * w16;     // max_s8_rows * w8
+                   int max_s8_rows, int gx, int gy) {
+  extern __shared__ __align__(16) uint8_t head_smem[];
+  LerpTap* out_taps = reinterpret_cast<LerpTap*>(head_smem);  // band_rows
+  LerpTap* s8_taps = out_taps + band_rows;                     // max_s8_rows
+  LerpTap* col_taps = s8_taps + max_s8_rows;                   // w8
+  float* wlo_s = reinterpret_cast<float*>(col_taps + w8);      // 64
+  float* hs_s = wlo_s + 64;                                    // max_hs_rows x w16
+  float* s_s = hs_s + max_hs_rows * w16;                       // max_s8_rows x w8
+  float* rl = s_s + max_s8_rows * w8;                          // band_rows x w8
 
   const int b = blockIdx.y;
   const int band = blockIdx.x;
   const int s8_row0 = bands[4 * band], s8_rows = bands[4 * band + 1];
   const int hs_row0 = bands[4 * band + 2], hs_rows = bands[4 * band + 3];
+  const int row0 = band * band_rows;
+  const int rows = min(band_rows, H - row0);
   const int tid = threadIdx.x;
+  const int px_x = pow2_at_least(C / 8);
 
-  for (int i = tid; i < C; i += kHeadThreads) gw_s[i] = gw[(long long)b * C + i];
-  for (int i = tid; i < Cl; i += kHeadThreads) wlo_s[i] = w_lo[i];
-  __syncthreads();
+  float wx[8];  // the weights of this lane's chunk of x
+  const int k = tid & (px_x - 1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    wx[j] = 8 * k < C ? __ldg(gw + (long long)b * C + 8 * k + j) : 0.0f;
+  if (tid < Cl) wlo_s[tid] = w_lo[tid];
+  stage_taps(out_taps, row0, rows, s8_row0, w8, vh.lo, vh.hi, vh.w0, vh.w1, tid, kHeadThreads);
+  stage_taps(s8_taps, s8_row0, s8_rows, hs_row0, w16, uh.lo, uh.hi, uh.w0, uh.w1, tid,
+             kHeadThreads);
+  stage_taps(col_taps, 0, w8, 0, 1, uw.lo, uw.hi, uw.w0, uw.w1, tid, kHeadThreads);
 
   // stage 1: the gated high-classifier matvec on the band's stride-16 rows
-  const __nv_bfloat16* xb = x + ((long long)b * h16 + hs_row0) * w16 * C;
-  for (int i = tid; i < hs_rows * w16; i += kHeadThreads)
-    hs_s[i] = dot_bf16_seq(xb + (long long)i * C, gw_s, C);
+  channel_sums(x + ((long long)b * h16 + hs_row0) * w16 * C, C, hs_rows * w16, px_x, wx,
+               [&](int i, float v) { hs_s[i] = v; });
   __syncthreads();
 
   // stage 2: s = (up2(hs) + low matvec) + bias on the band's stride-8 rows
   const float bias_v = bias[0];
-  const __nv_bfloat16* lb = low + ((long long)b * h8 + s8_row0) * w8 * Cl;
-  for (int i = tid; i < s8_rows * w8; i += kHeadThreads) {
-    const int Y = s8_row0 + i / w8, X = i % w8;
-    const float* top = hs_s + (uh.lo[Y] - hs_row0) * w16;
-    const float* bot = hs_s + (uh.hi[Y] - hs_row0) * w16;
-    const float a0 = uh.w0[Y], a1 = uh.w1[Y];
-    const int l = uw.lo[X], r = uw.hi[X];
-    const float up = lerp2(uw.w0[X], lerp2(a0, top[l], a1, bot[l]), uw.w1[X],
-                           lerp2(a0, top[r], a1, bot[r]));
-    const float ls = dot_bf16_seq(lb + (long long)i * Cl, wlo_s, Cl);
-    s_s[i] = __fadd_rn(__fadd_rn(up, ls), bias_v);
-  }
+  channel_sums_per_lane(
+      low + ((long long)b * h8 + s8_row0) * w8 * Cl, Cl, s8_rows * w8, wlo_s,
+      [&](int i, float ls) {
+        const int r = i / w8, X = i - r * w8;
+        const LerpTap ty = s8_taps[r], tx = col_taps[X];
+        const float up = lerp2(tx.w0, lerp2(ty.w0, hs_s[ty.a + tx.a], ty.w1, hs_s[ty.b + tx.a]),
+                               tx.w1, lerp2(ty.w0, hs_s[ty.a + tx.b], ty.w1, hs_s[ty.b + tx.b]));
+        s_s[i] = __fadd_rn(__fadd_rn(up, ls), bias_v);
+      });
   __syncthreads();
 
-  // stage 3: full-size two-tap lerp and threshold, 16 pixels per thread
-  const int groups = (W + kPix - 1) / kPix;
-  const int row0 = band * band_rows;
-  const int rows = min(band_rows, H - row0);
-  for (int t = tid; t < rows * groups; t += kHeadThreads) {
-    const int g = t % groups;
-    const int i = row0 + t / groups;
-    const float* top = s_s + (vh.lo[i] - s8_row0) * w8;
-    const float* bot = s_s + (vh.hi[i] - s8_row0) * w8;
-    const float a0 = vh.w0[i], a1 = vh.w1[i];
-    const int j0 = g * kPix;
-    uint8_t* orow = out + ((long long)b * H + i) * W;
-    unsigned pk[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int p = 0; p < kPix; ++p) {
-      const int j = min(j0 + p, W - 1);
-      const int l = vw.lo[j], r = vw.hi[j];
-      const float rl = lerp2(a0, top[l], a1, bot[l]);
-      const float rr = lerp2(a0, top[r], a1, bot[r]);
-      if (lerp2(vw.w0[j], rl, vw.w1[j], rr) > 0.0f)
-        pk[p >> 2] |= 1u << (8 * (p & 3));
-    }
-    if (j0 + kPix <= W && ((uintptr_t)(orow + j0) & 15) == 0) {
-      *reinterpret_cast<uint4*>(orow + j0) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-    } else {
-      for (int p = 0; p < kPix && j0 + p < W; ++p)
-        orow[j0 + p] = (uint8_t)((pk[p >> 2] >> (8 * (p & 3))) & 1u);
-    }
+  // stage 3: the mask decode of the band's rows from s
+  band_row_lerp(s_s, w8, rows, out_taps, rl, tid, kHeadThreads);
+  __syncthreads();
+  const int cx = tid % gx, cy = tid / gx;
+  if (cy < gy) {
+    int lh[kPix];
+    float a0[kPix], a1[kPix];
+    band_col_store<false>(rl, rows, w8, out + ((long long)b * H + row0) * W, W, vw.lo, vw.hi,
+                          vw.w0, vw.w1, cx, cy, gx, gy, lh, a0, a1);
   }
 }
 
@@ -377,7 +518,7 @@ extern "C" int mtg_fused_mask_decode(const void* score, const void* lo_h,
   if (B < 1 || B > 65535 || band_rows < 1 || src_rows < 1 || gx < 1 || gy < 1 ||
       gx * gy > 1024 || w > 65535 || ((W & 15) == 0 && ((uintptr_t)out & 15)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)(src_rows + band_rows) * w;
+  const size_t smem = 16 * (size_t)band_rows + sizeof(float) * (size_t)(src_rows + band_rows) * w;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -394,19 +535,30 @@ extern "C" int mtg_fused_mask_decode(const void* score, const void* lo_h,
 }
 
 // taps: 16 pointers, (lo, hi, w0, w1) of U_h (h16 -> h8), U_w (w16 -> w8),
-// V_h (h8 -> H), V_w (w8 -> W). Needs C % 8 == 0, Cl % 8 == 0 and 16-byte
-// aligned x and low.
+// V_h (h8 -> H), V_w (w8 -> W). Needs C and Cl multiples of 8, C up to 256
+// and Cl up to 64, 16-byte aligned x and low, and out 16-byte aligned when
+// W % 16 == 0.
+// bands, n_bands, band_rows, max_hs_rows, max_s8_rows, gx, gy and smem: the host's plan (head_decode_plan); smem must cover the
+// layout.
 extern "C" int mtg_fused_head_decode(const void* x, const void* gw,
                                      const void* low, const void* w_lo,
                                      const void* bias, const void* const* taps,
                                      const void* bands, void* out, int B,
                                      int h16, int w16, int C, int h8, int w8,
                                      int Cl, int H, int W, int n_bands,
-                                     int band_rows, int max_hs_rows,
-                                     int max_s8_rows, void* stream) {
-  if ((C & 7) || (Cl & 7) || ((uintptr_t)x & 15) || ((uintptr_t)low & 15))
+                                     int band_rows, int max_hs_rows, int max_s8_rows,
+                                     int gx, int gy, int smem, void* stream) {
+  if ((C & 7) || (Cl & 7) || ((uintptr_t)x & 15) || ((uintptr_t)low & 15) ||
+      ((W & 15) == 0 && ((uintptr_t)out & 15)))
     return (int)cudaErrorMisalignedAddress;
-  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || C < 8 || C > 256 || Cl < 8 || Cl > 64 || gx < 1 || gy < 1 ||
+      gx * gy > kHeadThreads || band_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long need =
+      16LL * (band_rows + max_s8_rows + w8) +
+      4LL * (64 + (long long)max_hs_rows * w16 + (long long)max_s8_rows * w8 +
+             (long long)band_rows * w8);
+  if (smem < need || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   Taps t[4];
   for (int i = 0; i < 4; ++i) {
     t[i].lo = (const int*)taps[4 * i];
@@ -414,13 +566,9 @@ extern "C" int mtg_fused_head_decode(const void* x, const void* gw,
     t[i].w0 = (const float*)taps[4 * i + 2];
     t[i].w1 = (const float*)taps[4 * i + 3];
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)C + Cl + (size_t)max_hs_rows * w16 +
-                       (size_t)max_s8_rows * w8);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        head_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        head_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   head_decode_kernel<<<dim3(n_bands, B), kHeadThreads, smem,
@@ -428,7 +576,7 @@ extern "C" int mtg_fused_head_decode(const void* x, const void* gw,
       (const __nv_bfloat16*)x, (const float*)gw, (const __nv_bfloat16*)low,
       (const float*)w_lo, (const float*)bias, t[0], t[1], t[2], t[3],
       (const int*)bands, (uint8_t*)out, h16, w16, C, h8, w8, Cl, H, W,
-      band_rows, max_hs_rows, max_s8_rows);
+      band_rows, max_hs_rows, max_s8_rows, gx, gy);
   return (int)cudaGetLastError();
 }
 

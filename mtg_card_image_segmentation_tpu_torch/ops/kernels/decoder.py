@@ -28,9 +28,9 @@ from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_taps
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 10 + [_I] * 9 + [_P]
-_HEAD_ARGS = [_P] * 8 + [_I] * 13 + [_P]
+_HEAD_ARGS = [_P] * 8 + [_I] * 16 + [_P]
 _UP_ARGS = [_P] * 3 + [_I] * 5 + [_P]
-_BAND_ROWS = 64  # output rows per CTA of the head decode
+HEAD_THREADS = 128  # threads of a head-decode CTA (csrc/decoder.cu)
 
 _TAPS: Dict[Tuple[int, int, str], Tuple[torch.Tensor, ...]] = {}
 _CACHE_LOCK = threading.Lock()  # the per-shape tables fill once, from any thread
@@ -68,7 +68,8 @@ def mask_decode_plan(b: int, h: int, w: int, out_h: int, out_w: int,
     to 8 while the grid has fewer than two CTAs per SM), the band count, the
     most source rows one band reads (the half-pixel taps are nondecreasing,
     so a band reads rows lo[first] .. hi[last]), the shared-memory bytes
-    (those rows and the band's row-lerped rows, float32) and the block
+    (the band's row taps, 16 bytes each; those rows and the band's
+    row-lerped rows, float32) and the block
     shape: ``gx`` threads across the 16-pixel column groups, ``gy`` across
     rows, 128 threads (more CTAs per SM). ``sm_count`` is the card's
     multiprocessor count."""
@@ -82,7 +83,8 @@ def mask_decode_plan(b: int, h: int, w: int, out_h: int, out_w: int,
     groups = -(-out_w // 16)
     gx = min(groups, 32)
     return {"band_rows": band_rows, "n_bands": len(starts), "src_rows": src_rows,
-            "smem_bytes": 4 * (src_rows + band_rows) * w, "gx": gx, "gy": max(1, 128 // gx),
+            "smem_bytes": 16 * band_rows + 4 * (src_rows + band_rows) * w, "gx": gx,
+            "gy": max(1, 128 // gx),
             "groups": groups}
 
 
@@ -115,30 +117,65 @@ def fused_mask_decode(scores: torch.Tensor, out_h: int, out_w: int) -> torch.Ten
 # fused_head_decode
 # --------------------------------------------------------------------------
 
-_BANDS: Dict[Tuple, Tuple[torch.Tensor, int, int, int]] = {}
+_HEAD_LAUNCH: Dict[Tuple, Tuple] = {}
 
 
-def _head_bands(h16: int, h8: int, out_h: int, device: torch.device):
-    """The head decode's row bands: an int32 (n, 4) table on ``device`` of
-    (s8_row0, s8_rows, hs_row0, hs_rows) per band of ``_BAND_ROWS`` output
-    rows (the stride-8 and stride-16 rows the band's lerps read), with the
-    number of bands and the largest hs and s8 row counts. Cached per
-    shape."""
-    key = (h16, h8, out_h, str(device))
+@functools.lru_cache(maxsize=64)
+def head_decode_plan(b: int, h16: int, w16: int, c: int, h8: int, w8: int, cl: int,
+                     out_h: int, out_w: int, sm_count: int) -> Dict[str, object]:
+    """The head decode's launch plan. Output rows per band (one CTA each):
+    128, halved down to 8 while the grid has fewer than two CTAs per SM.
+    ``bands``: per band (s8_row0, s8_rows, hs_row0, hs_rows), the stride-8
+    and stride-16 rows its lerps read (the half-pixel taps are
+    nondecreasing, so a band reads lo[first] .. hi[last]); the largest of
+    each; the shared bytes (the taps of the band's output rows, stride-8
+    rows and columns, 16 bytes each; w_lo, hs rows, s rows and the
+    row-lerped rows, float32); the decode stage's grid of ``HEAD_THREADS``
+    threads, ``gx`` across column groups of 16 by ``gy``; and ``reread``,
+    the bytes of x and low the bands read over the bytes of one read (the
+    halo rows neighbouring bands both read)."""
+    lo_v, hi_v, _, _ = _interp_taps(h8, out_h)
+    lo_u, hi_u, _, _ = _interp_taps(h16, h8)
+    band_rows = 128
+    while band_rows > 8 and b * -(-out_h // band_rows) < 2 * sm_count:
+        band_rows //= 2
+    rows = []
+    for r0 in range(0, out_h, band_rows):
+        r1 = min(r0 + band_rows, out_h) - 1
+        s0, s1 = int(lo_v[r0]), int(hi_v[r1])
+        t0, t1 = int(lo_u[s0]), int(hi_u[s1])
+        rows.append((s0, s1 - s0 + 1, t0, t1 - t0 + 1))
+    table = np.asarray(rows, np.int32)
+    table.flags.writeable = False
+    max_hs, max_s8 = int(table[:, 3].max()), int(table[:, 1].max())
+    read = int(table[:, 3].sum()) * w16 * c + int(table[:, 1].sum()) * w8 * cl
+    gx = min(-(-out_w // 16), 32)
+    return {"band_rows": band_rows, "n_bands": len(rows), "bands": table,
+            "max_hs_rows": max_hs, "max_s8_rows": max_s8,
+            "smem_bytes": 16 * (band_rows + max_s8 + w8)
+            + 4 * (64 + max_hs * w16 + max_s8 * w8 + band_rows * w8),
+            "gx": gx, "gy": HEAD_THREADS // gx,
+            "reread": read / (h16 * w16 * c + h8 * w8 * cl)}
+
+
+def _head_launch(key: Tuple, device: torch.device):
+    """(plan, band table on ``device``, the 16 tap tables and a ctypes array
+    of their pointers) for one shape, cached: the per-call host work of the
+    wrapper is one lookup."""
+    dkey = key + (str(device),)
     with _CACHE_LOCK:
-        if key not in _BANDS:
-            lo_v, hi_v, _, _ = _interp_taps(h8, out_h)
-            lo_u, hi_u, _, _ = _interp_taps(h16, h8)
-            rows = []
-            for r0 in range(0, out_h, _BAND_ROWS):
-                r1 = min(r0 + _BAND_ROWS, out_h) - 1
-                s0, s1 = int(lo_v[r0]), int(hi_v[r1])
-                t0, t1 = int(lo_u[s0]), int(hi_u[s1])
-                rows.append((s0, s1 - s0 + 1, t0, t1 - t0 + 1))
-            table = np.asarray(rows, np.int32)
-            _BANDS[key] = (torch.from_numpy(table).to(device), len(rows),
-                           int(table[:, 3].max()), int(table[:, 1].max()))
-        return _BANDS[key]
+        hit = _HEAD_LAUNCH.get(dkey)
+    if hit is None:
+        _, h16, w16, _, h8, w8, _, out_h, out_w, _ = key
+        plan = head_decode_plan(*key)
+        taps = (interp_taps(h16, h8, device) + interp_taps(w16, w8, device)
+                + interp_taps(h8, out_h, device) + interp_taps(w8, out_w, device))
+        ptrs = (ctypes.c_void_p * 16)(*(t.data_ptr() for t in taps))
+        bands = torch.from_numpy(np.array(plan["bands"])).to(device)
+        hit = (plan, bands, taps, ptrs)
+        with _CACHE_LOCK:
+            hit = _HEAD_LAUNCH.setdefault(dkey, hit)
+    return hit
 
 
 def _check_head(x, gw, low, w_lo) -> None:
@@ -150,27 +187,61 @@ def _check_head(x, gw, low, w_lo) -> None:
                          f"{tuple(w_lo.shape)}")
 
 
-def _seq_channel_sum(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """sum_c x[..., c] * weight[..., c] in float32, channels in ascending
-    order, each product and each partial sum rounded on its own. ``weight``
-    is (C,) or (B, C)."""
+def _tree_channel_sum(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """sum_c x[..., c] * weight[..., c] in float32 in the kernel's order:
+    chunks of 8 channels (the last zero-padded), each summed in channel
+    order, product then sum, each rounded on its own; then the chunk sums,
+    zero-padded to a power of two, combined pairwise, ``p[..., 0::2] +
+    p[..., 1::2]``, until one is left. ``weight`` is (C,) or (B, C)."""
     xf = x.float()
     wf = weight.float()
     if wf.dim() == 2:
         wf = wf[:, None, None, :]
-    acc = torch.zeros(xf.shape[:-1], dtype=torch.float32, device=x.device)
-    for c in range(xf.shape[-1]):
-        acc = acc + xf[..., c] * wf[..., c]
-    return acc
+    c = xf.shape[-1]
+    pad = -c % 8
+    prod_shape = torch.broadcast_shapes(xf.shape, wf.shape)
+    xf = torch.nn.functional.pad(xf, (0, pad))
+    wf = torch.nn.functional.pad(wf, (0, pad))
+    chunks = (c + pad) // 8
+    xs = xf.reshape(*xf.shape[:-1], chunks, 8)
+    ws = wf.reshape(*wf.shape[:-1], chunks, 8)
+    acc = torch.zeros((*prod_shape[:-1], chunks), dtype=torch.float32, device=x.device)
+    for j in range(8):
+        acc = acc + xs[..., j] * ws[..., j]
+    p = 1
+    while p < chunks:
+        p *= 2
+    acc = torch.nn.functional.pad(acc, (0, p - chunks))
+    while acc.shape[-1] > 1:
+        acc = acc[..., 0::2] + acc[..., 1::2]
+    return acc[..., 0]
+
+
+def tree_order_case(device=None):
+    """Head-decode inputs whose mask depends on the order of the channel
+    sums: image 0's x holds 1, 2^-24 and -1 at the starts of its three
+    8-channel chunks, image 1's low the same, everything else 0, all weights
+    1 and no bias. In the tree order, (1 + 2^-24) + (-1 + 0) = 0, so every
+    score is 0 and the mask is empty; an order that adds -1 to 1 first keeps
+    the 2^-24 and marks every pixel. Shapes: x (2, 10, 8, 24), low (2, 20,
+    16, 24), out 160x128. Returns (x, gw, low, w_lo, bias, out_h, out_w)."""
+    x = torch.zeros((2, 10, 8, 24))
+    low = torch.zeros((2, 20, 16, 24))
+    for t, img in ((x, 0), (low, 1)):
+        t[img, ..., 0], t[img, ..., 8], t[img, ..., 16] = 1.0, 2.0 ** -24, -1.0
+    return (x.to(device, torch.bfloat16), torch.ones((2, 24), device=device),
+            low.to(device, torch.bfloat16), torch.ones(24, device=device),
+            torch.zeros((), device=device), 160, 128)
 
 
 def fused_head_decode_plain(x: torch.Tensor, gw: torch.Tensor, low: torch.Tensor,
                             w_lo: torch.Tensor, bias, out_h: int, out_w: int) -> torch.Tensor:
-    """The kernel's operations in the kernel's order: sequential channel
-    sums, ``w0*a + w1*b`` lerps rows then columns, ``(up + ls) + bias``."""
+    """The kernel's operations in the kernel's order: tree-order channel
+    sums (:func:`_tree_channel_sum`), ``w0*a + w1*b`` lerps rows then
+    columns, ``(up + ls) + bias``."""
     _check_head(x, gw, low, w_lo)
-    hs = _seq_channel_sum(x, gw)
-    ls = _seq_channel_sum(low, w_lo)
+    hs = _tree_channel_sum(x, gw)
+    ls = _tree_channel_sum(low, w_lo)
     up = _lerp_taps(hs, low.shape[1], low.shape[2])
     bias = torch.as_tensor(bias, dtype=torch.float32, device=x.device)
     return fused_mask_decode_plain((up + ls) + bias, out_h, out_w)
@@ -182,7 +253,8 @@ def fused_head_decode(x: torch.Tensor, gw: torch.Tensor, low: torch.Tensor,
     high classifier's card-minus-background weights, low (B, h8, w8, Cl)
     low tap, w_lo (Cl,) and bias () float32 -> (B, out_h, out_w) uint8
     {0,1}. Launches the CUDA kernel for CUDA tensors (x and low bfloat16, C
-    and Cl multiples of 8); CPU tensors take the plain version."""
+    and Cl multiples of 8, C up to 256, Cl up to 64); CPU tensors take the
+    plain version."""
     if x.device.type == "cpu":
         return fused_head_decode_plain(x, gw, low, w_lo, bias, out_h, out_w)
     if x.device.type != "cuda":
@@ -194,23 +266,23 @@ def fused_head_decode(x: torch.Tensor, gw: torch.Tensor, low: torch.Tensor,
         raise ValueError(f"want float32 gw and w_lo, got {gw.dtype} and {w_lo.dtype}")
     b, h16, w16, c = x.shape
     _, h8, w8, cl = low.shape
-    if c % 8 or cl % 8:
-        raise ValueError(f"channel counts must be multiples of 8, got {c} and {cl}")
+    if c % 8 or cl % 8 or not (8 <= c <= 256 and 8 <= cl <= 64):
+        raise ValueError(f"want channel counts that are multiples of 8, C up to 256 and Cl up "
+                         f"to 64, got {c} and {cl}")
     if not (x.is_contiguous() and low.is_contiguous()):
         raise ValueError("want contiguous NHWC tensors")
     dev = x.device
     gw, w_lo = gw.contiguous(), w_lo.contiguous()
     bias = torch.as_tensor(bias, dtype=torch.float32, device=dev).reshape(1)
-    taps = (interp_taps(h16, h8, dev) + interp_taps(w16, w8, dev)
-            + interp_taps(h8, out_h, dev) + interp_taps(w8, out_w, dev))
-    tap_ptrs = (ctypes.c_void_p * 16)(*(t.data_ptr() for t in taps))
-    bands, n_bands, max_hs, max_s8 = _head_bands(h16, h8, out_h, dev)
+    plan, bands, _, tap_ptrs = _head_launch(
+        (b, h16, w16, c, h8, w8, cl, out_h, out_w, _build.sm_count(dev)), dev)
     out = torch.empty((b, out_h, out_w), dtype=torch.uint8, device=dev)
     fn = _build.bind("decoder", "mtg_fused_head_decode", _HEAD_ARGS)
     err = fn(x.data_ptr(), gw.data_ptr(), low.data_ptr(), w_lo.data_ptr(),
              bias.data_ptr(), ctypes.cast(tap_ptrs, ctypes.c_void_p), bands.data_ptr(),
-             out.data_ptr(), b, h16, w16, c, h8, w8, cl, out_h, out_w, n_bands,
-             _BAND_ROWS, max_hs, max_s8, _build.stream_ptr(x))
+             out.data_ptr(), b, h16, w16, c, h8, w8, cl, out_h, out_w, plan["n_bands"],
+             plan["band_rows"], plan["max_hs_rows"], plan["max_s8_rows"],
+             plan["gx"], plan["gy"], plan["smem_bytes"], _build.stream_ptr(x))
     _build.check(err, "fused_head_decode")
     _build.count("fused_head_decode")
     return out

@@ -56,7 +56,7 @@ from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import (
     BlockWeights,
     fused_tail_chain,
 )
-from mtg_card_image_segmentation_tpu_torch.ops.kernels.stem import fused_stem
+from mtg_card_image_segmentation_tpu_torch.ops.kernels.stem import apply_stem, prepare_stem
 from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_matrix, bilinear_resize
 from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
 from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
@@ -256,9 +256,9 @@ class SegPredictor:
                                     device=self.device)
         if fused_stem:
             conv = self.model.backbone.stem.conv
-            with torch.no_grad():  # OIHW -> the kernel's HWIO
-                self._stem = (conv.weight.float().permute(2, 3, 1, 0).contiguous(),
-                              conv.bias.float().contiguous())
+            with torch.no_grad():  # OIHW -> HWIO, made into the kernel's operands once
+                self._stem = prepare_stem(conv.weight.float().permute(2, 3, 1, 0),
+                                          conv.bias.float(), self._center)
 
     @classmethod
     def from_checkpoint(cls, checkpoint_dir: str, name: str, height: int, width: int,
@@ -278,8 +278,7 @@ class SegPredictor:
             # normalization is folded into the stem weights; the centering
             # constant makes zero padding == ImageNet zero
             if self.fused_stem:
-                x = fused_stem(images.contiguous(), *self._stem, self._center,
-                               out_dtype=self.dtype)
+                x = apply_stem(images.contiguous(), self._stem, out_dtype=self.dtype)
             else:
                 x = (images.float() - self._center).to(self.dtype)
             taps = _fused_backbone(self.model.backbone, x, self._tail,

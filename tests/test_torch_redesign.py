@@ -108,7 +108,7 @@ def test_mask_decode_plan(b, h, w, out_h, out_w):
         r1 = min(r0 + band, out_h) - 1
         assert hi[r1] - lo[r0] + 1 <= plan["src_rows"]
         assert np.all(np.diff(lo[r0:r1 + 1]) >= 0) and np.all(np.diff(hi[r0:r1 + 1]) >= 0)
-    assert plan["smem_bytes"] == 4 * (plan["src_rows"] + band) * w <= 48 * 1024
+    assert plan["smem_bytes"] == 16 * band + 4 * (plan["src_rows"] + band) * w <= 48 * 1024
     assert plan["groups"] == -(-out_w // 16)
     assert plan["gx"] == min(plan["groups"], 32) and plan["gx"] * plan["gy"] <= 128
     assert plan["n_bands"] * b >= 2 * SMS or band == 8
