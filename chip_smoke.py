@@ -1525,9 +1525,357 @@ def phase_stencil_tool(torch, card):
     return n
 
 
+TRAIN_GATE_HW, TRAIN_GATE_B = (64, 48), 2  # the CPU tests' fp32 train-step size
+# card vs CPU, one fp32 train step: loss relative; each gradient tensor's
+# max|d| over its own max|g|; updated BN statistics max|d|. Gradients below
+# TRAIN_ZERO_GRAD of the model's largest are zero in exact arithmetic (the
+# projections' BN biases, whose shift the next train-mode BN removes).
+TRAIN_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-4, "batch_stats_abs": 1e-4}
+TRAIN_ZERO_GRAD = 1e-5
+# train-step timing shapes (the JAX package's own training sweep used these)
+TRAIN_SHAPES = ((320, 240, 32), (320, 240, 128), (512, 512, 32))
+
+
+def card_batch(torch, b: int, h: int, w: int, seed: int):
+    """(images, masks) made on the card from ``seed``, a card segmentation
+    task: per image a rectangle (each side 40-80 % of the image's, turned by
+    up to 30 degrees) of a random colour, textured with the background, over
+    a smooth background (a 1/16-size normal field bilinearly upsampled);
+    the masks are the rectangles. Images are normalized NHWC float32."""
+    import math
+
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((b, 1, 1), generator=g, device="cuda")
+
+    base = torch.randn((b, 3, max(1, h // 16), max(1, w // 16)), generator=g, device="cuda")
+    bg = F.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
+    bg = bg.permute(0, 2, 3, 1)
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, None, :]
+    dy, dx = yy - uniform(0.3, 0.7) * h, xx - uniform(0.3, 0.7) * w
+    ang = uniform(-math.pi / 6, math.pi / 6)
+    ry, rx = torch.cos(ang) * dy - torch.sin(ang) * dx, torch.sin(ang) * dy + torch.cos(ang) * dx
+    inside = (ry.abs() <= uniform(0.2, 0.4) * h) & (rx.abs() <= uniform(0.2, 0.4) * w)
+    color = torch.randn((b, 1, 1, 3), generator=g, device="cuda")
+    imgs = 0.6 * bg + inside[..., None] * (color + 0.3 * bg.flip(-1))
+    return imgs.contiguous(), inside.to(torch.int32)
+
+
+def card_images_u8(torch, b: int, h: int, w: int, seed: int):
+    """:func:`card_batch`'s images as the uint8 RGB a client would send
+    (un-normalized with the ImageNet statistics), on the host, and the
+    masks."""
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+
+    imgs, masks = card_batch(torch, b, h, w, seed)
+    mean = torch.tensor(IMAGENET_MEAN, device=imgs.device)
+    std = torch.tensor(IMAGENET_STD, device=imgs.device)
+    u8 = ((imgs * std + mean) * 255).round().clamp(0, 255).to(torch.uint8)
+    return u8.cpu().numpy(), masks
+
+
+def median_ms(torch, fn, n: int, warmup: int) -> float:
+    """Median host time of ``n`` calls of ``fn``, each between two
+    synchronizes, after ``warmup`` calls."""
+    import statistics
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def train_state(torch, opt: dict, dtype: str = "bfloat16", weights=None, device="cuda"):
+    """A train state of the full model: Flax default init from SEED, or the
+    given (params, batch_stats); ``opt`` overrides the default optimizer."""
+    from mtg_card_image_segmentation_tpu_torch.config import ModelConfig, OptimizerConfig
+    from mtg_card_image_segmentation_tpu_torch.models import registry
+    from mtg_card_image_segmentation_tpu_torch.training.optim import create_optimizer
+    from mtg_card_image_segmentation_tpu_torch.training.state import create_seg_state
+    from mtg_card_image_segmentation_tpu_torch.utils.params import (
+        init_flax_defaults,
+        trainable_from_flax,
+    )
+
+    if weights is None:
+        model = init_flax_defaults(registry.from_config(ModelConfig(compute_dtype=dtype)), SEED)
+    else:
+        model = trainable_from_flax(*weights, dtype=getattr(torch, dtype))
+    opt_def, _ = create_optimizer(OptimizerConfig(**opt), 1, 10)
+    return create_seg_state(model, opt_def, torch.device(device))
+
+
+def train_gate_fp32(torch, weights, devices=("cpu", "cuda")):
+    """One fp32 train step of the full model at 64x48 b2 on the card and on
+    the CPU from the same weights (BN statistics off init) and batch, with
+    TF32 off as main() leaves it for the whole script: loss, every gradient
+    tensor, the updated BN statistics."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import flatten_tree
+    from mtg_card_image_segmentation_tpu_torch.training.loop import make_train_step
+    from mtg_card_image_segmentation_tpu_torch.utils.params import state_dict_to_flax
+
+    (h, w), b = TRAIN_GATE_HW, TRAIN_GATE_B
+    rng = np.random.default_rng(SEED + 64)
+    base = torch.from_numpy(rng.standard_normal((b, 3, h // 8, w // 8)).astype(np.float32))
+    imgs = F.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
+    imgs = imgs.permute(0, 2, 3, 1).contiguous()
+    masks = (imgs[..., 0] > 0).to(torch.int32)
+    sgd = dict(name="sgd", schedule="constant", warmup_epochs=0, learning_rate=0.05)
+    out = {}
+    for dev in devices:
+        state = train_state(torch, sgd, "float32", weights, dev)
+        _, stats = make_train_step()(state, imgs.to(dev), masks.to(dev))
+        grads = state_dict_to_flax({n: p.grad for n, p in state.model.named_parameters()})[0]
+        out[dev] = (float(stats["loss"]), flatten_tree(grads),
+                    flatten_tree(state.variables()["batch_stats"]))
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = (out[d] for d in devices)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    gmax = max(float(np.abs(v).max()) for v in g_cpu.values())
+    zero = sorted(k for k, v in g_cpu.items() if np.abs(v).max() <= TRAIN_ZERO_GRAD * gmax)
+    ratios = {k: float(np.abs(g_gpu[k] - v).max() / np.abs(v).max())
+              for k, v in g_cpu.items() if k not in zero}
+    worst = max(ratios, key=ratios.get)
+    zero_max = max((float(np.abs(g_gpu[k]).max()) / gmax for k in zero), default=0.0)
+    stats_err = max(float(np.abs(s_gpu[k] - v).max()) for k, v in s_cpu.items())
+    r = {"phase": "train_fp32_card_vs_cpu", "size": [h, w], "batch": b,
+         "loss_cpu": l_cpu, "loss_card": l_gpu, "loss_rel_err": loss_rel,
+         "grad_tensors": len(g_cpu), "grad_worst_rel_err": ratios[worst],
+         "grad_worst_tensor": worst, "zero_grad_tensors": len(zero),
+         "zero_grad_card_max_over_gmax": zero_max,
+         "batch_stats_max_abs_err": stats_err, "tolerance": TRAIN_TOL}
+    emit(r)
+    if not loss_rel <= TRAIN_TOL["loss_rel"]:
+        fail(f"fp32 train step: card loss {l_gpu} vs CPU {l_cpu}")
+    if not ratios[worst] <= TRAIN_TOL["grad_rel"] or not zero_max <= TRAIN_ZERO_GRAD:
+        fail(f"fp32 train step gradients: {worst} {ratios[worst]}, zero grads {zero_max}")
+    if not stats_err <= TRAIN_TOL["batch_stats_abs"]:
+        fail(f"fp32 train step BN statistics max|d| {stats_err}")
+
+
+def train_loss_falls(torch, card):
+    """30 bf16 steps on one fixed card-made batch at 320x240 b32, AdamW at a
+    constant 1e-3: every loss finite, the last five below the first five."""
+    import math
+
+    from mtg_card_image_segmentation_tpu_torch.training.loop import make_train_step
+
+    h, w, b = TRAIN_SHAPES[0]
+    state = train_state(torch, dict(schedule="constant", warmup_epochs=0))
+    imgs, masks = card_batch(torch, b, h, w, SEED + 300)
+    step = make_train_step()
+    losses = []
+    for _ in range(30):
+        _, stats = step(state, imgs, masks)
+        losses.append(stats["loss"])
+    losses = [float(x) for x in losses]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    emit({"phase": "train_bf16_loss", "size": [h, w], "batch": b, "steps": 30,
+          "lr": 1e-3, "losses": losses, "mean_first5": first, "mean_last5": last,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"bf16 train losses not finite: {losses}")
+    if not last < first:
+        fail(f"bf16 train loss did not fall: first five {first}, last five {last}")
+
+
+def train_trainer(torch, card, root: Path):
+    """SegTrainer at the default config (320x240 b32, bf16, AdamW cosine
+    with warmup) for 2 epochs x 8 steps, validating every epoch on 2 batches
+    after recalibrating on 2, checkpointing every epoch; then resume from
+    checkpoint_epoch_1 and from final_model, and serve final_model."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.config import Config
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        SegPredictor,
+    )
+    from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt
+    from mtg_card_image_segmentation_tpu_torch.training.trainer import SegTrainer
+
+    cfg = Config().override({"train": {
+        "num_epochs": 2, "steps_per_epoch": 8, "eval_every_epochs": 1,
+        "save_every_epochs": 1, "log_every_steps": 4,
+        "checkpoint_dir": str(root / "ckpts"), "log_dir": str(root / "logs")}})
+    h, w, b = cfg.model.input_height, cfg.model.input_width, cfg.data.batch_size
+    train = [card_batch(torch, b, h, w, SEED + 400 + i) for i in range(4)]
+    val = [card_batch(torch, b, h, w, SEED + 500 + i) for i in range(2)]
+    recal = [card_batch(torch, b, h, w, SEED + 600 + i)[0] for i in range(2)]
+
+    def forever():
+        while True:
+            yield from train
+
+    trainer = SegTrainer(cfg)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.train(forever(), lambda: val, lambda: recal)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    d = root / "ckpts"
+    want = ["best_model", "checkpoint_epoch_1", "checkpoint_epoch_2", "final_model"]
+    missing = [n for n in want if not (d / n / ckpt.ARRAYS).is_file()]
+    if missing or not (d / "history.json").is_file():
+        fail(f"trainer wrote no {missing or 'history.json'}")
+    if len(hist["train_loss"]) != 2 or len(hist["val_mean_iou"]) != 2:
+        fail(f"trainer history {sorted(hist)}")
+
+    # resume: the step and every array bit for bit
+    def same(a: dict, b: dict) -> bool:
+        fa, fb = ckpt.flatten_tree(a), ckpt.flatten_tree(b)
+        return set(fa) == set(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+    ep1 = SegTrainer(cfg)
+    ep1.resume("checkpoint_epoch_1")
+    on_disk = ckpt.read_arrays(str(d), "checkpoint_epoch_1", ("params", "batch_stats",
+                                                                "opt_state", "step"))
+    ep1_ok = (ep1.state.step == 8 == int(on_disk["step"]) and ep1.start_epoch == 1
+              and same(ep1.state.opt_state(), on_disk["opt_state"])
+              and same(ep1.state.variables(), {k: on_disk[k] for k in ("params", "batch_stats")}))
+    fin = SegTrainer(cfg)
+    fin.resume("final_model")
+    fin_ok = (fin.state.step == trainer.state.step == 16
+              and same(fin.state.opt_state(), trainer.state.opt_state())
+              and same(fin.state.variables(), trainer.state.variables()))
+
+    # serving the trained checkpoint: b32 at 320x240 through the kernels,
+    # images of the task it was trained on, 4 of them against the CPU
+    # predictor from the same checkpoint
+    def served(dtype=torch.bfloat16, **kw):
+        return SegPredictor.from_checkpoint(str(d), "final_model", h, w, dtype=dtype, **kw)
+
+    pred = served()
+    imgs, truth = card_images_u8(torch, b, h, w, SEED + 700)
+    masks = pred.predict(torch.from_numpy(imgs).cuda())
+    served_acc = float((masks == truth).float().mean())
+    cpu = served(device="cpu")
+    agree = pred.mask_agreement(cpu, imgs[:4])
+    noise = np.random.default_rng(SEED + 701).integers(0, 256, (4, h, w, 3), np.uint8)
+    # bf16 decisions near the boundary may round either way: reported, not
+    # gated, are bf16 on noise, the bf16 kernels against the bf16 and the
+    # fp32 reference path (use_kernels=False; the kernels are bf16 only) on
+    # the card, and the share of pixels whose fp32 logit margin is below
+    # 0.05; gated is the fp32 reference path on noise, card against CPU
+    agree_noise = pred.mask_agreement(cpu, noise)
+    agree_ref16 = pred.mask_agreement(served(use_kernels=False), imgs[:4])
+    ref32 = served(torch.float32, use_kernels=False)
+    cpu32 = served(torch.float32, use_kernels=False, device="cpu")
+    agree_ref32 = pred.mask_agreement(ref32, imgs[:4])
+    agree32 = ref32.mask_agreement(cpu32, imgs[:4])
+    agree32_noise = ref32.mask_agreement(cpu32, noise)
+    mean, std = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                 for v in (IMAGENET_MEAN, IMAGENET_STD))
+    with torch.inference_mode():
+        logits = ref32.model((torch.from_numpy(imgs[:4]).cuda() / 255.0 - mean) / std)
+    near = float(((logits[..., 1] - logits[..., 0]).abs() < 0.05).float().mean())
+    emit({"phase": "train_segtrainer", "size": [h, w], "batch": b, "epochs": 2,
+          "steps_per_epoch": 8, "seconds": seconds, "kernel_launches": launches,
+          "history": hist, "resume_epoch_1_bit_equal": ep1_ok,
+          "resume_final_bit_equal": fin_ok, "served_masks": list(masks.shape),
+          "served_foreground_fraction": float(masks.float().mean()),
+          "served_pixel_accuracy": served_acc,
+          "served_card_vs_cpu_agreement": agree,
+          "served_card_vs_cpu_agreement_noise_images": agree_noise,
+          "served_kernels_vs_reference_path": agree_ref16,
+          "served_kernels_vs_fp32_reference_path": agree_ref32,
+          "served_fp32_reference_card_vs_cpu_agreement": agree32,
+          "served_fp32_reference_card_vs_cpu_agreement_noise_images": agree32_noise,
+          "served_fp32_margin_below_0.05_share": near, "card": card["name"],
+          "nvidia_smi": card["nvidia_smi"]})
+    if not (ep1_ok and fin_ok):
+        fail(f"resume not bit-equal: epoch 1 {ep1_ok}, final {fin_ok}")
+    if masks.dtype != torch.uint8 or tuple(masks.shape) != (b, h, w) or int(masks.max()) > 1:
+        fail(f"served masks {masks.dtype} {tuple(masks.shape)}")
+    if agree < 0.999:
+        fail(f"trained checkpoint: card vs CPU mask agreement {agree} < 0.999")
+    if agree32_noise < 0.999:
+        fail(f"trained checkpoint, fp32 reference path: card vs CPU agreement on noise "
+             f"{agree32_noise} < 0.999")
+    return trainer
+
+
+def train_numbers(torch, card, trainer, root: Path):
+    """Train step ms, img/s and peak memory at TRAIN_SHAPES (median of 10
+    steps after 3, each between synchronizes); eval, recalibration and
+    checkpoint-save ms at 320x240 b32; a profile of 3 train steps there."""
+    from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt
+    from mtg_card_image_segmentation_tpu_torch.training.loop import (
+        make_eval_step,
+        make_train_step,
+        recalibrate_batch_stats,
+    )
+
+    step = make_train_step()
+    rows = []
+    for h, w, b in TRAIN_SHAPES:
+        state = train_state(torch, {})
+        imgs, masks = card_batch(torch, b, h, w, SEED + 800 + b)
+        for _ in range(3):
+            step(state, imgs, masks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(torch, lambda: step(state, imgs, masks), 10, 0)
+        rows.append({"size": [h, w], "batch": b, "step_ms": ms, "img_per_s": b * 1e3 / ms,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        del state, imgs, masks
+        torch.cuda.empty_cache()
+    h, w, b = TRAIN_SHAPES[0]
+    state = trainer.state
+    imgs, masks = card_batch(torch, b, h, w, SEED + 900)
+    eval_step = make_eval_step()
+    eval_ms = median_ms(torch, lambda: eval_step(state, imgs, masks), 10, 3)
+    recal_ms = median_ms(torch, lambda: recalibrate_batch_stats(state, [imgs]), 10, 3)
+    save_ms = median_ms(torch, lambda: ckpt.save_checkpoint(str(root), "timed", state, 0), 3, 1)
+    prof = profile_calls(torch, lambda: step(state, imgs, masks), 3)
+    emit({"phase": "train_numbers", "train_steps": rows,
+          "eval_ms_per_batch": eval_ms, "recal_ms_per_batch": recal_ms,
+          "checkpoint_save_ms": save_ms, "eval_recal_size": [h, w], "eval_recal_batch": b,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    emit({"phase": "profile", "path": "train_step", "batch": b, "size": [h, w], **prof,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+
+
+def phase_train(torch, weights, card):
+    """Segmentation training on the card: the fp32 card-vs-CPU gate, the
+    bf16 loss-falls gate, SegTrainer end to end with resume and serving,
+    and the training numbers."""
+    import tempfile
+
+    train_gate_fp32(torch, weights)
+    train_loss_falls(torch, card)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        trainer = train_trainer(torch, card, Path(tmp))
+        train_numbers(torch, card, trainer, Path(tmp))
+    del trainer
+    torch.cuda.empty_cache()
+
+
 # profiled kernel-name fragments -> class, first match wins
 PROFILE_CLASSES = (
-    ("softmax (area attention, DFL)", ("softmax",)),
+    ("softmax (area attention, DFL; the loss's softmaxes)", ("softmax",)),
+    ("optimizer (foreach AdamW)", ("multi_tensor_apply",)),
+    ("batch norm, training (statistics, forward, backward)",
+     ("batchnorm_fwtr", "batchnorm_bwtr", "bn_fw_tr", "bn_bw", "batch_norm_collect",
+      "batch_norm_backward", "batch_norm_reduce", "batch_norm_elemt", "batch_norm_update")),
     ("tail chain: expand/project GEMM (pw_gemm_kernel)", ("pw_gemm_kernel",)),
     ("tail chain: depthwise + SE sums (depthwise_kernel)", ("depthwise_kernel",)),
     ("tail chain: SE gate (se_gate_kernel)", ("se_gate_kernel",)),
@@ -1537,8 +1885,11 @@ PROFILE_CLASSES = (
     ("stem (stem_kernel)", ("stem_kernel",)),
     ("head decode (head_decode_kernel)", ("head_decode_kernel",)),
     ("batch norm (cuDNN inference kernel)", ("bn_fw", "batch_norm", "batchnorm")),
+    ("cuDNN layout transforms (tensorTransform)", ("tensortransform",)),
+    # before the gathers: cuDNN's "implicit_gemm_indexed" kernels hold "index"
+    ("cuDNN convolutions", ("conv", "xmma", "implicit", "cudnn", "nhwc", "dgrad", "wgrad",
+                            "fprop")),
     ("gathers (nearest and bilinear resize, decode)", ("index", "gather")),
-    ("cuDNN convolutions", ("conv", "xmma", "implicit", "cudnn", "nhwc", "dgrad", "fprop")),
     ("cuBLAS / matmul", ("gemm", "cutlass", "cublas", "splitk")),
     ("reductions (SE/head pooling)", ("reduce",)),
     ("elementwise (bias, activations, casts, residuals)",
@@ -1546,20 +1897,24 @@ PROFILE_CLASSES = (
 )
 
 
-def phase_profile(torch, pred, imgs, card, calls: int = 3):
-    """Where the time of ``predict`` goes: ``torch.profiler`` over a few
-    calls of one main path's b128 predictor, device time by kernel class,
-    the top kernels, and the device's busy and idle shares of the traced
-    window (union of kernel intervals over first start to last end)."""
+def profile_calls(torch, fn, calls: int) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn``: device time by
+    kernel class, the top kernels, and the device's busy and idle shares of
+    the traced window (union of kernel intervals over first start to last
+    end)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            pred.predict(imgs)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, without the device spans of annotated host ranges
+    # (torch.optim's "Optimizer.step#AdamW.step"), which cover kernels
+    # already counted
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not events:
         fail("the profile holds no device time")
     per_name, per_class = {}, {}
@@ -1581,18 +1936,24 @@ def phase_profile(torch, pred, imgs, card, calls: int = 3):
     union += cur_e - cur_s
     window_us = spans[-1][1] - spans[0][0]
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:15]
+    return {"calls": calls, "wall_ms_per_call": wall_ms / calls,
+            "kernel_ms_per_call": busy_us / 1e3 / calls,
+            "kernel_launches_per_call": len(events) / calls,
+            "device_busy_share": union / window_us,
+            "device_idle_share": 1.0 - union / window_us,
+            "classes": [{"class": lab, "ms_per_call": us / 1e3 / calls,
+                         "share_of_kernel_time": us / busy_us}
+                        for lab, us in sorted(per_class.items(), key=lambda kv: -kv[1])],
+            "top_kernels": [{"name": n[:120], "ms_per_call": us / 1e3 / calls}
+                            for n, us in top]}
+
+
+def phase_profile(torch, pred, imgs, card, calls: int = 3):
+    """Where the time of ``predict`` goes: ``profile_calls`` over a few
+    calls of one main path's b128 predictor."""
+    r = profile_calls(torch, lambda: pred.predict(imgs), calls)
     emit({"phase": "profile", "predictor": type(pred).__name__, "batch": imgs.shape[0],
-          "size": list(imgs.shape[1:3]), "calls": calls,
-          "wall_ms_per_call": wall_ms / calls,
-          "kernel_ms_per_call": busy_us / 1e3 / calls,
-          "kernel_launches_per_call": len(events) / calls,
-          "device_busy_share": union / window_us,
-          "device_idle_share": 1.0 - union / window_us,
-          "classes": [{"class": lab, "ms_per_call": us / 1e3 / calls,
-                       "share_of_kernel_time": us / busy_us}
-                      for lab, us in sorted(per_class.items(), key=lambda kv: -kv[1])],
-          "top_kernels": [{"name": n[:120], "ms_per_call": us / 1e3 / calls}
-                          for n, us in top],
+          "size": list(imgs.shape[1:3]), **r,
           "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
 
 
@@ -1638,6 +1999,7 @@ def main() -> int:
     phase_yolo(torch, yolo_weights, card)
     server_launches = phase_server(torch, weights, pose_weights, yolo_weights, card)
     stencil_launches = phase_stencil_tool(torch, card)
+    phase_train(torch, weights, card)
 
     # per kernel: source, the TPU kernel it replaces, and its launches on
     # each main path that runs it, every path zeroed before and read after

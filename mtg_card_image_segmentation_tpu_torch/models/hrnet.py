@@ -178,7 +178,7 @@ class HRNetPoseHead(nn.Module):
             self.add_module(f"deconv{i}", nn.ConvTranspose2d(
                 cin, width, 4, stride=2, padding=1, bias=False))
             self.add_module(f"deconv_bn{i}", nn.BatchNorm2d(
-                width, eps=BN_EPS, momentum=BN_MOMENTUM))
+                width, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM))
             cin = width
         self.conv0 = ConvBNAct(width, width, 3, act="relu", dtype=dtype)
         self.conv1 = ConvBNAct(width, width, 3, act="relu", dtype=dtype)

@@ -11,7 +11,13 @@ Numerics follow the reference:
   and the activation after it in float32, and the result is cast to
   ``dtype``;
 - explicit symmetric ``(k-1)//2 * dilation`` padding (torch convention);
-- BatchNorm eps 1e-3, torch momentum 0.01 (Flax 0.99).
+- BatchNorm eps 1e-3, momentum ``bn_momentum`` in Flax's convention
+  (default 0.99, torch's 0.01).
+
+Train mode (``module.train()``) normalizes with the batch's float32 mean
+and *biased* variance and updates the running statistics as Flax does,
+``ra = m * ra + (1 - m) * batch`` with the biased variance
+(:func:`batch_norm_train`). Eval mode reads the running statistics.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
-BN_MOMENTUM = 0.01  # torch convention; Flax's 0.99
+BN_MOMENTUM = 0.99  # Flax's convention; torch's 0.01
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None) -> int:
@@ -51,6 +57,28 @@ def hard_swish(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"relu": torch.relu, "hardswish": F.hardswish, "silu": F.silu}
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm of NCHW float32 ``x`` with Flax's statistics.
+
+    ``F.batch_norm`` normalizes with the batch mean and biased variance but
+    moves the running variance with the unbiased one, ``ra' = (1 - t) * ra
+    + t * var * n / (n - 1)`` with ``t = bn.momentum``. Flax moves it with
+    the biased one, which is ``a + (ra' - a) * (n - 1) / n`` with ``a = (1 -
+    t) * ra``: that correction is made on the (C,) vectors, reading nothing
+    back to the host. ``F.batch_norm`` is given copies of the buffers:
+    autograd keeps the tensors it was given, which must not change before
+    the backward."""
+    n = x.numel() // x.shape[1]
+    t = bn.momentum
+    mean, var = bn.running_mean.clone(), bn.running_var.clone()
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, t, bn.eps)
+    with torch.no_grad():
+        kept = (1.0 - t) * bn.running_var
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+    return y
+
+
 def nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NCHW view (channels_last memory when ``x`` is contiguous)."""
     return x.permute(0, 3, 1, 2)
@@ -68,7 +96,7 @@ class ConvBNAct(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  act: Optional[str] = "relu", use_bn: bool = True,
-                 fold_bn: bool = False,
+                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
@@ -81,7 +109,7 @@ class ConvBNAct(nn.Module):
             bias=fold_bn and use_bn,
         )
         self.bn = (
-            nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+            nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - bn_momentum)
             if use_bn and not fold_bn else None
         )
 
@@ -94,7 +122,9 @@ class ConvBNAct(nn.Module):
         # conv's sum.
         y = F.conv2d(nchw(x.to(self.dtype)), self.conv.weight.to(self.dtype), None,
                      self.stride, self.padding, self.dilation, self.groups)
-        if self.bn is not None:
+        if self.bn is not None and self.training:
+            y = batch_norm_train(y.float(), self.bn)
+        elif self.bn is not None:
             y = self.bn(y.float())
         elif self.conv.bias is not None:
             y = y + self.conv.bias.to(y.dtype)[:, None, None]
@@ -133,6 +163,7 @@ class InvertedResidual(nn.Module):
                  kernel: int, stride: int, dilation: int = 1,
                  use_se: bool = False, act: str = "relu", fold_bn: bool = False,
                  se_features: Optional[int] = None,
+                 bn_momentum: float = BN_MOMENTUM,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         # dilation replaces striding in the dilated (LR-ASPP) tail
@@ -142,12 +173,14 @@ class InvertedResidual(nn.Module):
         self.out_features = out_features
         self.dtype = dtype
         self.expand = (
-            ConvBNAct(in_features, expanded, 1, act=act, fold_bn=fold_bn, dtype=dtype)
+            ConvBNAct(in_features, expanded, 1, act=act, fold_bn=fold_bn,
+                      bn_momentum=bn_momentum, dtype=dtype)
             if expanded != in_features else None
         )
         self.depthwise = ConvBNAct(
             expanded, expanded, kernel, stride=self.stride, dilation=dilation,
-            groups=expanded, act=act, fold_bn=fold_bn, dtype=dtype,
+            groups=expanded, act=act, fold_bn=fold_bn, bn_momentum=bn_momentum,
+            dtype=dtype,
         )
         self.se = (
             SqueezeExcite(expanded, se_features or make_divisible(expanded // 4, 8),
@@ -155,7 +188,8 @@ class InvertedResidual(nn.Module):
             if use_se else None
         )
         self.project = ConvBNAct(expanded, out_features, 1, act=None,
-                                 fold_bn=fold_bn, dtype=dtype)
+                                 fold_bn=fold_bn, bn_momentum=bn_momentum,
+                                 dtype=dtype)
 
     @property
     def residual(self) -> bool:

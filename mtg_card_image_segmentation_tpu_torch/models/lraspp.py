@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mtg_card_image_segmentation_tpu_torch.models.layers import ConvBNAct
+from mtg_card_image_segmentation_tpu_torch.models.layers import BN_MOMENTUM, ConvBNAct
 from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
     HIGH_CHANNELS,
     LOW_CHANNELS,
@@ -34,11 +34,12 @@ def conv1x1(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tenso
 
 class LRASPPHead(nn.Module):
     def __init__(self, num_classes: int = 2, inter_channels: int = 128,
-                 fold_bn: bool = False, dtype: torch.dtype = torch.bfloat16) -> None:
+                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         self.dtype = dtype
         self.cbr = ConvBNAct(HIGH_CHANNELS, inter_channels, 3, act="relu",
-                             fold_bn=fold_bn, dtype=dtype)
+                             fold_bn=fold_bn, bn_momentum=bn_momentum, dtype=dtype)
         self.scale = nn.Conv2d(HIGH_CHANNELS, inter_channels, 1, bias=False)
         self.low_classifier = nn.Conv2d(LOW_CHANNELS, num_classes, 1)
         self.high_classifier = nn.Conv2d(inter_channels, num_classes, 1)
@@ -61,14 +62,16 @@ class CardSegmentationModel(nn.Module):
     def __init__(self, num_classes: int = 2, inter_channels: int = 128,
                  fold_bn: bool = False,
                  expanded_overrides: Optional[Sequence[Optional[int]]] = None,
+                 bn_momentum: float = BN_MOMENTUM,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         self.backbone = MobileNetV3Backbone(
             dilated=True, fold_bn=fold_bn,
-            expanded_overrides=expanded_overrides, dtype=dtype,
+            expanded_overrides=expanded_overrides, bn_momentum=bn_momentum,
+            dtype=dtype,
         )
         self.head = LRASPPHead(num_classes, inter_channels, fold_bn=fold_bn,
-                               dtype=dtype)
+                               bn_momentum=bn_momentum, dtype=dtype)
 
     def logits_s8(self, x: torch.Tensor) -> torch.Tensor:
         """Head logits at stride 8, before the final upsample."""

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from mtg_card_image_segmentation_tpu_torch.models.layers import (
+    BN_MOMENTUM,
     ConvBNAct,
     InvertedResidual,
     make_divisible,
@@ -55,10 +56,11 @@ class MobileNetV3Backbone(nn.Module):
 
     def __init__(self, dilated: bool = True, fold_bn: bool = False,
                  expanded_overrides: Optional[Sequence[Optional[int]]] = None,
+                 bn_momentum: float = BN_MOMENTUM,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         self.stem = ConvBNAct(3, 16, 3, stride=2, act="hardswish",
-                              fold_bn=fold_bn, dtype=dtype)
+                              fold_bn=fold_bn, bn_momentum=bn_momentum, dtype=dtype)
         cin = 16
         for i, (k, exp, out, se, act, stride, in_tail) in enumerate(
             MOBILENET_V3_LARGE_ROWS
@@ -71,11 +73,12 @@ class MobileNetV3Backbone(nn.Module):
                 dilation=2 if (dilated and in_tail) else 1,
                 use_se=se, act=act, fold_bn=fold_bn,
                 se_features=make_divisible(exp // 4, 8) if se else None,
-                dtype=dtype,
+                bn_momentum=bn_momentum, dtype=dtype,
             ))
             cin = out
         self.head_conv = ConvBNAct(cin, HIGH_CHANNELS, 1, act="hardswish",
-                                   fold_bn=fold_bn, dtype=dtype)
+                                   fold_bn=fold_bn, bn_momentum=bn_momentum,
+                                   dtype=dtype)
 
     def block(self, i: int) -> InvertedResidual:
         return getattr(self, f"block{i}")

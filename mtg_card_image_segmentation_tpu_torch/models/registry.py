@@ -1,12 +1,15 @@
 """Model factory (counterpart of the JAX package's ``models/registry.py``).
 The port registers the segmentation model and the two corner-pose models
-(HRNet heatmaps, YOLO12n-pose)."""
+(HRNet heatmaps, YOLO12n-pose). Parameters are float32; ``compute_dtype``
+is the dtype the convs run in. ``bn_momentum`` is Flax's convention."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
 import torch
+
+from mtg_card_image_segmentation_tpu_torch.config import ModelConfig
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 
@@ -31,20 +34,40 @@ def create_model(name: str, **kwargs):
     return _REGISTRY[name](**kwargs)
 
 
+def check_param_dtype(param_dtype: str) -> None:
+    if param_dtype != "float32":
+        raise ValueError(f"the port keeps float32 parameters, not {param_dtype!r}")
+
+
 @register("lraspp_mobilenet_v3_large")
 def _lraspp(num_classes: int = 2, inter_channels: int = 128,
-            compute_dtype: str = "bfloat16", fold_bn: bool = False,
+            compute_dtype: str = "bfloat16", param_dtype: str = "float32",
+            bn_momentum: float = 0.99, fold_bn: bool = False,
             expanded_overrides=None):
     from mtg_card_image_segmentation_tpu_torch.models.lraspp import (
         CardSegmentationModel,
     )
 
+    check_param_dtype(param_dtype)
     return CardSegmentationModel(
         num_classes=num_classes,
         inter_channels=inter_channels,
         fold_bn=fold_bn,
         expanded_overrides=expanded_overrides,
+        bn_momentum=bn_momentum,
         dtype=_DTYPES[compute_dtype],
+    )
+
+
+def from_config(cfg: ModelConfig):
+    """The segmentation model of ``cfg`` (train layout: BN not folded, Flax
+    momentum 0.99)."""
+    return create_model(
+        cfg.name,
+        num_classes=cfg.num_classes,
+        inter_channels=cfg.inter_channels,
+        compute_dtype=cfg.compute_dtype,
+        param_dtype=cfg.param_dtype,
     )
 
 

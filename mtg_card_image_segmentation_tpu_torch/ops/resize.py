@@ -8,6 +8,7 @@ bit for bit.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -59,6 +60,20 @@ def _interp_taps(in_size: int, out_size: int):
             (1.0 - w_hi).astype(np.float32), w_hi.astype(np.float32))
 
 
+@lru_cache(maxsize=64)
+def _device_coords(in_size: int, out_size: int, device: torch.device):
+    """:func:`half_pixel_coords` as (lo, hi) int64 and w_hi float32 tensors
+    on ``device``, made once: a copy from host memory on every call would
+    wait for the device each time. They are made outside inference mode,
+    so that a first call under ``torch.inference_mode`` (a predictor) does
+    not cache tensors that autograd (training) refuses to save."""
+    lo, hi, w = half_pixel_coords(in_size, out_size)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(lo.astype(np.int64)).to(device),
+                torch.from_numpy(hi.astype(np.int64)).to(device),
+                torch.from_numpy(w).to(device))
+
+
 def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize NHWC (or HWC) ``x`` to (out_h, out_w): torch
     ``F.interpolate(mode='bilinear', align_corners=False)`` semantics,
@@ -69,14 +84,14 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     _, in_h, in_w, _ = x.shape
     xf = x.float()
     if in_h != out_h:
-        lo, hi, w = (torch.from_numpy(a).to(x.device) for a in half_pixel_coords(in_h, out_h))
-        top = xf.index_select(1, lo.long())
-        bot = xf.index_select(1, hi.long())
+        lo, hi, w = _device_coords(in_h, out_h, x.device)
+        top = xf.index_select(1, lo)
+        bot = xf.index_select(1, hi)
         xf = top + (bot - top) * w[None, :, None, None]
     if in_w != out_w:
-        lo, hi, w = (torch.from_numpy(a).to(x.device) for a in half_pixel_coords(in_w, out_w))
-        left = xf.index_select(2, lo.long())
-        right = xf.index_select(2, hi.long())
+        lo, hi, w = _device_coords(in_w, out_w, x.device)
+        left = xf.index_select(2, lo)
+        right = xf.index_select(2, hi)
         xf = left + (right - left) * w[None, None, :, None]
     out = xf.to(x.dtype)
     return out[0] if squeeze else out

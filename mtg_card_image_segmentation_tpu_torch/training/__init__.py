@@ -1,1 +1,2 @@
-"""Checkpoints (the serving half: parameters and statistics)."""
+"""Segmentation training: optimizer and schedules, train state, train/eval
+steps, BatchNorm recalibration, checkpoints and the epoch loop."""

@@ -1,0 +1,161 @@
+"""Train/eval steps, exact BatchNorm recalibration and early stopping (the
+segmentation half of the JAX package's ``training/loop.py``).
+
+- A train step is eager PyTorch: forward (the modules' own bf16 casts),
+  loss, backward, optimizer update; the BatchNorm running statistics move
+  during the forward. Its per-batch metric stats stay on the device, so the
+  host reads nothing back until the trainer logs.
+- An eval step returns the per-batch stats and the exact confusion counts,
+  with optional per-image 0/1 weights for padded rows.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any, Dict, Iterable, List, Optional
+
+import torch
+
+from mtg_card_image_segmentation_tpu_torch import losses as losses_lib
+from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
+from mtg_card_image_segmentation_tpu_torch.models.layers import ConvBNAct
+from mtg_card_image_segmentation_tpu_torch.training.state import SegTrainState
+
+
+def make_train_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
+                    num_classes: int = 2):
+    """``step(state, images, masks) -> (state, stats)``: one update of
+    ``state`` in place from NHWC float ``images`` and (B, H, W) int
+    ``masks``. ``stats`` is a dict of device tensors for
+    :class:`metrics.MetricsAccumulator`. The gradients stay in ``.grad``
+    until the next step."""
+
+    def train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = model(images)
+        loss = losses_lib.combined_loss(logits, masks, dice_weight=dice_weight,
+                                        ce_weight=ce_weight)
+        loss.backward()
+        state.apply_gradients()
+        with torch.no_grad():
+            stats = metrics_lib.segmentation_batch_stats(loss, logits.detach(), masks,
+                                                         num_classes)
+        return state, stats
+
+    return train_step
+
+
+def make_eval_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
+                   num_classes: int = 2):
+    """``step(state, images, masks, weights=None) -> (stats, confusion)``
+    in eval mode (running statistics). ``weights`` (per-image 0/1) keep
+    padded rows of the last eval batch out of the exact confusion counts;
+    the smoothed per-batch stats stay whole-batch."""
+
+    @torch.no_grad()
+    def eval_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None):
+        logits = state.model.eval()(images)
+        loss = losses_lib.combined_loss(logits, masks, dice_weight=dice_weight,
+                                        ce_weight=ce_weight)
+        stats = metrics_lib.segmentation_batch_stats(loss, logits, masks, num_classes)
+        cm = metrics_lib.confusion_matrix(torch.argmax(logits, dim=-1), masks,
+                                          num_classes, weights)
+        return stats, cm
+
+    return eval_step
+
+
+def batch_norms(model: torch.nn.Module) -> List[torch.nn.BatchNorm2d]:
+    """The BatchNorms of ``model``'s ``ConvBNAct`` units (the ones whose
+    train mode follows Flax)."""
+    return [m.bn for m in model.modules() if isinstance(m, ConvBNAct) and m.bn is not None]
+
+
+@contextmanager
+def _exact_batch_stats(model: torch.nn.Module):
+    """Train mode with every BatchNorm's running statistics replaced by the
+    batch's own (Flax momentum 0, torch momentum 1); restores both after."""
+    bns = batch_norms(model)
+    kept = [bn.momentum for bn in bns]
+    was_training = model.training
+    try:
+        for bn in bns:
+            bn.momentum = 1.0
+        yield bns
+    finally:
+        for bn, m in zip(bns, kept):
+            bn.momentum = m
+        model.train(was_training)
+
+
+@torch.no_grad()
+def recalibrate_batch_stats(state: SegTrainState, batches: Iterable[torch.Tensor]) -> SegTrainState:
+    """Exact BatchNorm running-stat recalibration, in place.
+
+    With momentum 0.99 the running statistics need ~500 steps to leave
+    their init; short runs and fine-tunes evaluate garbage until they are
+    recalibrated. One train-mode forward per batch with momentum 0 gives
+    each batch's exact statistics (mean, biased variance); they are averaged
+    over ``batches`` and written back. (Averaging per-batch variances
+    slightly under-counts the between-batch variance of the means;
+    negligible for iid batches.)"""
+    model = state.model
+    acc: Optional[List[torch.Tensor]] = None
+    n = 0
+    with _exact_batch_stats(model.train()) as bns:
+        # the buffers, updated in place by each forward
+        stats = [t for bn in bns for t in (bn.running_mean, bn.running_var)]
+        for images in batches:
+            model(images)
+            acc = ([t.clone() for t in stats] if acc is None
+                   else [a.add_(t) for a, t in zip(acc, stats)])
+            n += 1
+        for t, a in zip(stats, acc or []):
+            t.copy_(a / n)
+    return state
+
+
+class EarlyStopping:
+    """Max/min-mode early stopping with best-state restore. The best
+    state's parameters and statistics are kept on the host, so device
+    memory is not doubled."""
+
+    def __init__(self, patience: int = 15, min_delta: float = 0.0, mode: str = "max") -> None:
+        if mode not in ("max", "min"):
+            raise ValueError(f"early stopping mode {mode!r}: want 'max' or 'min'")
+        self.patience = patience
+        self.min_delta = min_delta
+        self.mode = mode
+        self.best: Optional[float] = None
+        self.counter = 0
+        self.should_stop = False
+        self._best_state_host: Optional[Dict[str, torch.Tensor]] = None
+
+    def _improved(self, value: float) -> bool:
+        if self.best is None:
+            return True
+        if self.mode == "max":
+            return value > self.best + self.min_delta
+        return value < self.best - self.min_delta
+
+    def __call__(self, value: float, state: Any = None) -> bool:
+        """Returns True when training should stop."""
+        if self._improved(value):
+            self.best = value
+            self.counter = 0
+            if state is not None:
+                self._best_state_host = {k: v.detach().to("cpu", copy=True)
+                                         for k, v in state.model.state_dict().items()}
+        else:
+            self.counter += 1
+            if self.counter >= self.patience:
+                self.should_stop = True
+        return self.should_stop
+
+    def restore_best(self, state):
+        """``state`` with the best seen parameters and statistics (in place)."""
+        if self._best_state_host is not None:
+            state.model.load_state_dict(self._best_state_host)
+        return state

@@ -12,11 +12,13 @@ port's ``state_dict``:
   kw)`` in the gradient form, i.e. spatially flipped, so the bridge flips
   both spatial axes and permutes;
 - BN ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
-  ``running_mean/running_var`` of ``BatchNorm2d(eps=1e-3, momentum=0.01)``.
+  ``running_mean/running_var`` of ``BatchNorm2d(eps=1e-3)``.
 
 ``init_flax_like``, ``init_hrnet_flax_like`` and ``init_yolo_flax_like`` make
 such trees from a numpy seed, for runs that have no trained checkpoint and no JAX (the card's
-machine).
+machine). ``init_flax_defaults`` gives a module Flax's default initial values
+(a fresh training run); ``trainable_from_flax`` builds the segmentation model
+for training from a tree.
 """
 
 from __future__ import annotations
@@ -134,6 +136,45 @@ def from_flax(params: Dict[str, Any], batch_stats: Optional[Dict[str, Any]] = No
     )
     model.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
     return model.eval()
+
+
+def trainable_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                        dtype: torch.dtype = torch.bfloat16) -> CardSegmentationModel:
+    """Build the port's ``CardSegmentationModel`` for training from a Flax
+    tree: train mode, BatchNorm unfolded (``batch_stats`` are required) with
+    Flax's default momentum 0.99, float32 parameters, compute ``dtype``."""
+    model = CardSegmentationModel(expanded_overrides=expanded_widths(params), dtype=dtype)
+    model.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
+    return model.train()
+
+
+@torch.no_grad()
+def init_flax_defaults(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Give ``model`` (in place) the initial values of a Flax module with
+    default initializers, drawn from a torch generator seeded with ``seed``:
+    conv and transpose-conv kernels LeCun-normal truncated at two standard
+    deviations (``variance_scaling(1, "fan_in", "truncated_normal")``),
+    biases 0, BN scale 1 and bias 0, running mean 0 and variance 1."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, t in model.state_dict().items():
+        module, leaf = name.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        if t.dim() == 4:
+            # fan-in: OIHW convs I*kh*kw; (in, out, kh, kw) transpose convs
+            # in*kh*kw, the Flax kernel's (kh, kw, in, out) read the same way
+            deconv = _is_deconv(module.rsplit(".", 1)[-1])
+            fan_in = t.shape[0] * t.shape[2] * t.shape[3] if deconv else t[0].numel()
+            # the standard deviation of a unit normal truncated to [-2, 2]
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            v = torch.empty(t.shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=gen)
+        elif leaf in ("weight", "running_var"):
+            v = torch.ones(t.shape)
+        else:
+            v = torch.zeros(t.shape)
+        t.copy_(v)
+    return model
 
 
 def hrnet_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],

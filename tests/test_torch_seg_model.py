@@ -129,6 +129,20 @@ def test_full_model_matches_jax_fp32(jax_layout, seeded_vars):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_full_model_matches_jax_fp32_320x240(jax_layout, seeded_vars):
+    """The same at the config's input size, 320x240, b2: 1e-4."""
+    jmodel = jax_layout[0]
+    p, s = seeded_vars
+    x = np.random.default_rng(7).standard_normal((2, 320, 240, 3)).astype(np.float32)
+    apply = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))
+    want = np.asarray(apply({"params": _jnp_tree(p), "batch_stats": _jnp_tree(s)},
+                            jnp.asarray(x)))
+    with torch.no_grad():
+        got = from_flax(p, s)(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 320, 240, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_conv_padding_matches_torch_and_jax_stride2():
     """Explicit (k-1)//2 padding on a stride-2 conv, the case of
     tests/test_model_seg.py:59: port == F.conv2d == JAX ConvBNAct."""

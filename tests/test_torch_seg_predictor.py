@@ -64,6 +64,23 @@ def test_predictor_fp32_matches_jax_predictor(weights, images):
         assert (ours.numpy() == theirs).mean() >= 0.999
 
 
+def test_predictor_fp32_matches_jax_predictor_320x240(weights):
+    """The same at the server's and the config's 320x240, b2: the kernel
+    path and the reference path against the JAX reference path, mask
+    agreement >= 0.999."""
+    params, stats = weights
+    imgs = np.random.default_rng(4).integers(0, 256, (B, 320, 240, 3), np.uint8)
+    theirs = np.asarray(jax_pred.SegPredictor(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats), 320, 240,
+        use_pallas=False, dtype=jnp.float32, auto_layout=False,
+    ).predict(imgs))
+    for use_kernels in (True, False):
+        ours = SegPredictor(params, stats, 320, 240, use_kernels=use_kernels,
+                            dtype=torch.float32, device="cpu").predict(imgs)
+        assert tuple(ours.shape) == (B, 320, 240)
+        assert (ours.numpy() == theirs).mean() >= 0.999
+
+
 def test_score_map_fp32_matches_jax_composition(weights, images):
     """The fp32 stride-8 score map: port _fold_normalize_into_stem ->
     _fused_backbone (every block as its module) -> _head_score_s8 against
@@ -193,7 +210,9 @@ def test_port_sources_import_no_jax():
     names = {f.relative_to(PORT).as_posix() for f in files[:-2]}
     assert {"serving/server.py", "serving/imagecodec.py", "models/yolo12_pose.py",
             "compression/slim.py", "export/quantize.py", "training/checkpoint.py",
-            "ops/kernels/stencil_floor.py"} <= names
+            "ops/kernels/stencil_floor.py", "config.py", "losses.py", "metrics.py",
+            "utils/logging.py", "training/optim.py", "training/state.py",
+            "training/loop.py", "training/trainer.py"} <= names
     for f in files:
         text = f.read_text()
         assert not _JAX_IMPORT.search(text), f
