@@ -39,7 +39,17 @@ also at 320x240 b128 and b1 from that predictor's features and at a ragged
 - ``YoloCornerPredictor.predict`` at 640x640 (``yolo_end_to_end``,
   ``yolo_card_vs_cpu``);
 - ``tools/stencil_floor_torch.py`` (``stencil_tool``), the card's depthwise
-  stencil microbenchmark.
+  stencil microbenchmark;
+- segmentation training (``train_*``): ``SegTrainer`` at 320x240 b32, its
+  checkpoint served;
+- the data path at 320x240 b32 (``data``): the renderer, the augmented
+  render, ``augment_batch`` and ``preprocess_batch`` on the card against the
+  CPU on the same draws, the warps against numpy, ``SyntheticPipeline`` and
+  ``FilePipeline`` (96 JPEG frames at 480x640 that the phase writes) timed,
+  the draws' rates;
+- ``train_seg_torch.py`` in subprocesses (``train_cli``): the synthetic
+  source, a resume, the file source, and the synthetic run's checkpoint
+  served through kernels 1-3 (``launches_by_path``'s ``train_cli_served``).
 
 It also profiles a few b128 ``predict`` calls of the three
 predictors: device time by kernel class and the card's idle share.
@@ -62,6 +72,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1243,7 +1254,6 @@ def phase_server(torch, weights, pose_weights, yolo_weights, card):
     import base64
     import http.client
     import statistics
-    import tempfile
     import threading
 
     import numpy as np
@@ -1858,8 +1868,6 @@ def phase_train(torch, weights, card):
     """Segmentation training on the card: the fp32 card-vs-CPU gate, the
     bf16 loss-falls gate, SegTrainer end to end with resume and serving,
     and the training numbers."""
-    import tempfile
-
     train_gate_fp32(torch, weights)
     train_loss_falls(torch, card)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -1868,6 +1876,393 @@ def phase_train(torch, weights, card):
     del trainer
     torch.cuda.empty_cache()
 
+
+# the data path at the config's training size, card vs CPU on the same
+# draws (the renderer's homography is solved in float64, so the text lines'
+# sin(300 v) > 0.6 and the coverage's alpha > 0.5 see the same coordinates
+# on both devices and every image value is held to image_abs)
+DATA_HW = (320, 240)
+DATA_B = 32
+FRAME_HW = (480, 640)  # the camera frame the demo sends
+DATA_FRAMES = (96, 40)  # the file phase's train and test splits
+DATA_TOL = {"image_abs": 1e-4, "mask_agreement": 0.9999, "corners_px": 1e-3,
+            "warp_bilinear_vs_numpy": 1e-5}
+MOMENT_DRAWS = 4096
+
+
+def _data_bank(torch):
+    """A seeded asset bank on the host at the CLI's sizes: 3 card textures
+    (352x256), 3 backgrounds (320x240), 2 HDRIs (64x128) and their light
+    fields (16x32, around 1): smooth random images."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from mtg_card_image_segmentation_tpu_torch.data.synthetic import AssetBank
+
+    rng = np.random.default_rng(SEED + 1000)
+
+    def smooth(k, h, w, lo=0.0, hi=1.0):
+        base = torch.from_numpy(rng.random((k, 3, h // 8, w // 8)).astype(np.float32))
+        x = F.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
+        return (lo + (hi - lo) * x).permute(0, 2, 3, 1).contiguous()
+
+    return AssetBank(smooth(3, 352, 256), smooth(3, *DATA_HW), smooth(2, 64, 128),
+                     smooth(2, 16, 32, 0.5, 1.5))
+
+
+def _data_compare(name, cpu, card) -> dict:
+    """Card against CPU outputs ``(image, mask[, corners])`` of one
+    function, under DATA_TOL."""
+    r = {"function": name,
+         "image_max_abs_err": float((card[0].float().cpu() - cpu[0].float()).abs().max()),
+         "mask_agreement": float((card[1].cpu() == cpu[1]).float().mean())}
+    if len(cpu) > 2 and cpu[2] is not None:
+        r["corners_max_abs_err_px"] = float((card[2].cpu() - cpu[2]).abs().max())
+    bad = []
+    if r["image_max_abs_err"] > DATA_TOL["image_abs"]:
+        bad.append(f"image max|d| {r['image_max_abs_err']}")
+    if r["mask_agreement"] < DATA_TOL["mask_agreement"]:
+        bad.append(f"mask agreement {r['mask_agreement']}")
+    if r.get("corners_max_abs_err_px", 0.0) > DATA_TOL["corners_px"]:
+        bad.append(f"corners {r['corners_max_abs_err_px']} px")
+    r["failed"] = bad
+    return r
+
+
+def _np_warps(img, mask, sy, sx):
+    """Plain numpy references of the two warps, float64 arithmetic on the
+    same float32 coordinates: bilinear, zero outside [0, h-1] x [0, w-1];
+    nearest, rounding half to even (``np.rint``), zero outside
+    [-0.5, h-0.5)."""
+    import numpy as np
+
+    b, h, w = mask.shape
+    bi = np.arange(b)[:, None, None]
+    sy, sx = sy.astype(np.float64), sx.astype(np.float64)
+    iy, ix = np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64)
+    ok = (sy >= -0.5) & (sy < h - 0.5) & (sx >= -0.5) & (sx < w - 0.5)
+    nearest = np.where(ok, mask[bi, iy.clip(0, h - 1), ix.clip(0, w - 1)], 0)
+    y0, x0 = np.floor(sy).astype(np.int64), np.floor(sx).astype(np.int64)
+    wy, wx = (sy - y0)[..., None], (sx - x0)[..., None]
+    img = img.astype(np.float64)
+
+    def at(yy, xx):
+        return img[bi, yy.clip(0, h - 1), xx.clip(0, w - 1)]
+
+    top = at(y0, x0) * (1 - wx) + at(y0, x0 + 1) * wx
+    bot = at(y0 + 1, x0) * (1 - wx) + at(y0 + 1, x0 + 1) * wx
+    ok = (sy >= 0) & (sy <= h - 1) & (sx >= 0) & (sx <= w - 1)
+    return np.where(ok[..., None], top * (1 - wy) + bot * wy, 0.0), nearest
+
+
+def data_card_vs_cpu(torch, bank_cpu, frames):
+    """The data path's pure functions at 320x240 b32 on the card and on the
+    CPU from the same draws (drawn on the CPU, moved to both): render_scene
+    procedural and with the asset bank, the augmented render (the training
+    stream), augment_batch and preprocess_batch (the first 32 camera
+    frames); then the two warps on augment_batch's coordinates against
+    plain numpy."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.config import AugmentConfig
+    from mtg_card_image_segmentation_tpu_torch.data import augment as A
+    from mtg_card_image_segmentation_tpu_torch.data import synthetic as S
+    from mtg_card_image_segmentation_tpu_torch.data import warp as W
+    from mtg_card_image_segmentation_tpu_torch.data.preprocess import preprocess_batch
+
+    (h, w), b, cfg = DATA_HW, DATA_B, AugmentConfig()
+    gen = torch.Generator().manual_seed(SEED + 1001)
+    banks = {"cpu": bank_cpu, "cuda": A.to_device(bank_cpu, "cuda")}
+    rows = []
+
+    def both(name, fn, draws):
+        cpu = fn(draws, "cpu")
+        card = fn(A.to_device(draws, "cuda"), "cuda")
+        rows.append(_data_compare(name, cpu, card))
+        return cpu
+
+    proc = both("render_scene", lambda d, dev: S.render_scene(d, h, w),
+                S.draw_scene(gen, b, h, w))
+    both("render_scene_asset_bank", lambda d, dev: S.render_scene(d, h, w, assets=banks[dev]),
+         S.draw_scene(gen, b, h, w, assets=bank_cpu))
+    both("synthetic_augmented_batch", lambda d, dev: S.render_augmented_scene(d, h, w, cfg),
+         S.draw_augmented_scene(gen, b, h, w, S.NEGATIVE_PROB, cfg))
+    aug = A.draw_augment(gen, b, h, w, cfg)
+    both("augment_batch", lambda d, dev: A.augment_batch(
+        d, proc.image.to(dev), proc.mask.to(dev), cfg), aug)
+    imgs_u8, masks_u8 = (torch.from_numpy(a) for a in frames)
+    both("preprocess_batch", lambda d, dev: preprocess_batch(
+        imgs_u8.to(dev), masks_u8.to(dev), h, w), None)
+
+    # the warps against numpy on augment_batch's own coordinates, with a
+    # band of exact half-pixel rows where the rounding rule decides
+    aug_card = A.to_device(aug, "cuda")
+    m_fwd, _ = A.geometry_matrix(aug_card.geometry, h, w)
+    sy, sx = W.apply_homography_grid(W.invert_affine(m_fwd), h, w)
+    dy, dx = A.displacement_fields(aug_card.displacement, h, w, cfg)
+    sy, sx = sy + dy, sx + dx
+    sy[:, :8] = torch.arange(8, device="cuda", dtype=torch.float32)[:, None] - 0.5
+    ref_b, ref_n = _np_warps(proc.image.numpy(), proc.mask.numpy(), sy.cpu().numpy(),
+                             sx.cpu().numpy())
+    got_n = W.warp_nearest(proc.mask.cuda(), sy, sx).cpu().numpy()
+    got_b = W.warp_bilinear(proc.image.cuda(), sy, sx).cpu().numpy()
+    warps = {"warp_nearest_mismatches": int((got_n != ref_n).sum()),
+             "warp_bilinear_max_abs_err": float(np.abs(got_b - ref_b).max())}
+    return rows, warps
+
+
+def _write_frames(torch, root: Path):
+    """The file phase's dataset: 96 train and 40 test JPEG frames at 480x640
+    with PNG masks, rendered on the card from a seed. Returns the first 32
+    frames and masks (uint8, host)."""
+    import cv2
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.data.synthetic import (
+        NEGATIVE_PROB,
+        synthetic_batch,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1002)
+    frames, masks = [], []
+    while len(frames) < sum(DATA_FRAMES):
+        s = synthetic_batch(gen, DATA_B, *FRAME_HW, NEGATIVE_PROB)
+        frames += list((s.image * 255).round().clamp(0, 255).to(torch.uint8).cpu().numpy())
+        masks += list((s.mask * 255).to(torch.uint8).cpu().numpy())
+    names = ([("train", i) for i in range(DATA_FRAMES[0])]
+             + [("test", i) for i in range(DATA_FRAMES[1])])
+    for k, (split, i) in enumerate(names):
+        for sub in ("images", "masks"):
+            (root / split / sub).mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(root / split / "images" / f"{i:04d}.jpg"), frames[k][..., ::-1])
+        cv2.imwrite(str(root / split / "masks" / f"{i:04d}.png"), masks[k])
+    return np.stack(frames[:DATA_B]), np.stack(masks[:DATA_B])
+
+
+def data_pipelines(torch):
+    """SyntheticPipeline at 320x240 b32, with and without augmentation:
+    ms/batch (median of 10 after 3, each between synchronizes), device
+    events and kernel time per batch (profile of 3), peak memory above the
+    phase's start, foreground and negative shares of the timed batches."""
+    from mtg_card_image_segmentation_tpu_torch.config import AugmentConfig
+    from mtg_card_image_segmentation_tpu_torch.data.pipeline import SyntheticPipeline
+
+    rows = []
+    for aug in (AugmentConfig(), None):
+        pipe = SyntheticPipeline(DATA_B, *DATA_HW, augment=aug, seed=SEED)
+        fg = []
+        ms = median_ms(torch, lambda: fg.append(pipe.next_batch()[1].float().mean((1, 2))),
+                       10, 3)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pipe.next_batch()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - start
+        prof = profile_calls(torch, pipe.next_batch, 3)
+        fg = torch.cat(fg)
+        rows.append({"augment": aug is not None, "ms_per_batch": ms,
+                     "img_per_s": DATA_B * 1e3 / ms, "peak_mem_bytes_above_start": peak,
+                     "kernel_ms_per_batch": prof["kernel_ms_per_call"],
+                     "device_events_per_batch": prof["kernel_launches_per_call"],
+                     "device_idle_share": prof["device_idle_share"],
+                     "top_classes": prof["classes"][:4],
+                     "foreground_share": float(fg.mean()),
+                     "negative_share": float((fg == 0).float().mean()),
+                     "samples": fg.numel()})
+    return rows
+
+
+def data_files(torch, root: Path):
+    """FilePipeline over the written dataset (96 frames at 480x640 -> 320x240
+    b32, 3 batches an epoch): host decode ms per image, and ms/batch over two
+    epochs after one, augmentation off and on; nothing but the pipeline
+    consumes the batches."""
+    from mtg_card_image_segmentation_tpu_torch.config import AugmentConfig
+    from mtg_card_image_segmentation_tpu_torch.data.dataset import CardSegmentationDataset
+    from mtg_card_image_segmentation_tpu_torch.data.pipeline import FilePipeline
+
+    ds = CardSegmentationDataset(str(root / "train" / "images"), str(root / "train" / "masks"))
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds.load_raw(i)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+    rows = []
+    for aug in (None, AugmentConfig()):
+        pipe = FilePipeline(ds, DATA_B, *DATA_HW, augment=aug, seed=SEED)
+        list(pipe)
+        torch.cuda.synchronize()
+        t0, batches = time.perf_counter(), 0
+        for _ in range(2):
+            for images, _masks, _valid in pipe:
+                batches += 1
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / batches
+        rows.append({"augment": aug is not None, "ms_per_batch": ms, "batches": batches,
+                     "img_per_s": DATA_B * 1e3 / ms, "images_shape": list(images.shape)})
+    return {"frames": len(ds), "frame_hw": list(FRAME_HW),
+            "host_decode_ms_per_image": decode_ms,
+            "host_decode_ms_per_batch": decode_ms * DATA_B, "pipelines": rows}
+
+
+def data_moments(torch):
+    """Rates of the draws on the card against the config, each to be within
+    4 sigma of its probability over 4,096 draws."""
+    import math
+
+    from mtg_card_image_segmentation_tpu_torch.config import AugmentConfig
+    from mtg_card_image_segmentation_tpu_torch.data.augment import draw_augment
+    from mtg_card_image_segmentation_tpu_torch.data.synthetic import NEGATIVE_PROB, draw_scene
+
+    cfg = AugmentConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1003)
+    a = draw_augment(gen, MOMENT_DRAWS, 2, 3, cfg)
+    s = draw_scene(gen, MOMENT_DRAWS, 2, 3, NEGATIVE_PROB)
+    out = {}
+    for name, x, p in (("flip", a.geometry.do_flip, cfg.hflip_prob),
+                       ("affine", a.geometry.do_affine, cfg.affine_prob),
+                       ("elastic", a.displacement.do_elastic, cfg.elastic_prob),
+                       ("grid", a.displacement.do_grid, cfg.grid_distort_prob),
+                       ("negative", ~s.has_card, NEGATIVE_PROB)):
+        rate = float(x.float().mean())
+        out[name] = {"rate": rate, "config": p,
+                     "sigmas": (rate - p) / math.sqrt(p * (1 - p) / MOMENT_DRAWS)}
+    return out
+
+
+def phase_data(torch, card, root: Path) -> Path:
+    """The data path on the card: card vs CPU on the same draws, the warps
+    against numpy, the two pipelines' ms/batch, device events and memory,
+    the draws' rates. Returns the directory of the file dataset."""
+    t0 = time.perf_counter()
+    ds_root = root / "dataset"
+    frames = _write_frames(torch, ds_root)
+    rows, warps = data_card_vs_cpu(torch, _data_bank(torch), frames)
+    synthetic = data_pipelines(torch)
+    files = data_files(torch, ds_root)
+    moments = data_moments(torch)
+    emit({"phase": "data", "size": list(DATA_HW), "batch": DATA_B,
+          "card_vs_cpu": rows, "warps_vs_numpy": warps, "tolerance": DATA_TOL,
+          "synthetic_pipeline": synthetic, "file_pipeline": files, "draw_rates": moments,
+          "seconds": time.perf_counter() - t0,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    bad = [f"{r['function']}: {r['failed']}" for r in rows if r["failed"]]
+    if warps["warp_nearest_mismatches"]:
+        bad.append(f"warp_nearest vs numpy: {warps['warp_nearest_mismatches']} pixels")
+    if warps["warp_bilinear_max_abs_err"] > DATA_TOL["warp_bilinear_vs_numpy"]:
+        bad.append(f"warp_bilinear vs numpy: {warps['warp_bilinear_max_abs_err']}")
+    bad += [f"{k} rate {v['rate']} vs {v['config']}" for k, v in moments.items()
+            if abs(v["sigmas"]) > 4]
+    if bad:
+        fail(f"data: {bad}")
+    return ds_root
+
+
+def _cli(args, name: str, root: Path) -> dict:
+    """``train_seg_torch.py`` in a subprocess: its wall time, the ms/step it
+    logs, the device it reports; its output is kept in ``root``."""
+    cmd = [sys.executable, str(ROOT / "train_seg_torch.py"), *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    (root / f"{name}.log").write_text(out.stdout + out.stderr)
+    if out.returncode != 0:
+        fail(f"train_cli {name}: exit {out.returncode}: {out.stderr[-3000:]}")
+    dev = re.search(r"device (cuda.*)", out.stdout)
+    return {"run": name, "wall_seconds": seconds,
+            "logged_ms_per_step": [float(x) for x in re.findall(r"([\d.]+)ms/step", out.stdout)],
+            "device": dev.group(1) if dev else None,
+            "log": [ln.split("] ", 1)[-1] for ln in out.stdout.splitlines()
+                    if re.search(r"ms/step|VAL|Resumed", ln)]}
+
+
+def phase_train_cli(torch, card, root: Path, ds_root: Path) -> dict:
+    """``train_seg_torch.py`` on the card at the default config (320x240
+    b32): synthetic 2 epochs x 8 steps, ``--resume`` of a third epoch, the
+    file source for 2 epochs of 3 steps on the data phase's dataset (a
+    process's first step pays its warm-up, so an epoch's logged ms/step is
+    steady from the second epoch on); then
+    the synthetic run's ``final_model`` served at b32 on fresh rendered
+    validation images through kernels 1-3, gated card vs CPU as the
+    ``train_segtrainer`` phase gates its checkpoint. Returns the serving
+    call's kernel launches."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
+    from mtg_card_image_segmentation_tpu_torch.data.synthetic import (
+        NEGATIVE_PROB,
+        synthetic_batch,
+    )
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+
+    h, w = DATA_HW
+    syn = root / "ckpt_synthetic"
+
+    def sets(ckpt, epochs, *extra):
+        return ["--set", f"train.num_epochs={epochs}", "train.save_every_epochs=1",
+                "train.log_every_steps=8", f"train.checkpoint_dir={ckpt}",
+                f"train.log_dir={root / 'logs'}", *extra]
+
+    runs = [_cli(["--source", "synthetic", *sets(syn, 2, "train.steps_per_epoch=8")],
+                 "synthetic", root),
+            _cli(["--source", "synthetic", "--resume",
+                  *sets(syn, 3, "train.steps_per_epoch=8")], "resume", root),
+            _cli(["--source", "files", *sets(root / "ckpt_files", 2,
+                                             f"data.dataset_root={ds_root}")], "files", root)]
+    hist = json.loads((syn / "history.json").read_text())
+    hist_files = json.loads((root / "ckpt_files" / "history.json").read_text())
+
+    def served(dtype=torch.bfloat16, **kw):
+        return SegPredictor.from_checkpoint(str(syn), "final_model", h, w, dtype=dtype, **kw)
+
+    pred = served()
+    s = synthetic_batch(torch.Generator(device="cuda").manual_seed(30_000), DATA_B, h, w,
+                        NEGATIVE_PROB)
+    imgs = (s.image * 255).round().clamp(0, 255).to(torch.uint8)
+    pred.predict(imgs)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    masks = pred.predict(imgs)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    acc = float((masks == s.mask).float().mean())
+    host = imgs[:4].cpu().numpy()
+    noise = np.random.default_rng(SEED + 1004).integers(0, 256, (4, h, w, 3), np.uint8)
+    cpu = served(device="cpu")
+    agree = pred.mask_agreement(cpu, host)
+    ref32 = served(torch.float32, use_kernels=False)
+    cpu32 = served(torch.float32, use_kernels=False, device="cpu")
+    agree32 = ref32.mask_agreement(cpu32, host)
+    agree32_noise = ref32.mask_agreement(cpu32, noise)
+    # reported beside the gates, the witnesses if the bf16 gate fails
+    with torch.inference_mode():
+        mean, std = (torch.tensor(v, device="cuda") for v in (IMAGENET_MEAN, IMAGENET_STD))
+        logits = ref32.model((imgs[:4].float() / 255.0 - mean) / std)
+    witness = {"bf16_card_vs_cpu_agreement_noise_images": pred.mask_agreement(cpu, noise),
+               "kernels_vs_fp32_reference_path": pred.mask_agreement(ref32, host),
+               "fp32_margin_below_0.05_share":
+                   float(((logits[..., 1] - logits[..., 0]).abs() < 0.05).float().mean())}
+    emit({"phase": "train_cli", "size": [h, w], "batch": DATA_B, "runs": runs,
+          "history_val_mean_iou": hist.get("val_mean_iou"),
+          "history_train_loss": hist.get("train_loss"),
+          "files_history_val_mean_iou": hist_files.get("val_mean_iou"),
+          "served_launches": launches, "served_pixel_accuracy": acc,
+          "served_foreground_fraction": float(masks.float().mean()),
+          "served_card_vs_cpu_agreement": agree,
+          "served_fp32_reference_card_vs_cpu_agreement": agree32,
+          "served_fp32_reference_card_vs_cpu_agreement_noise_images": agree32_noise,
+          "reported": witness, "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if len(hist.get("val_mean_iou", [])) != 3 or len(hist_files.get("val_mean_iou", [])) != 2:
+        fail(f"train_cli histories: {hist.get('val_mean_iou')}, {hist_files.get('val_mean_iou')}")
+    if any(r["device"] is None or not r["device"].startswith("cuda") for r in runs):
+        fail(f"train_cli ran off the card: {[r['device'] for r in runs]}")
+    _check_seg_launches("train_cli_served", launches)
+    if agree < 0.999:
+        fail(f"CLI checkpoint: bf16 card vs CPU agreement {agree} < 0.999")
+    if agree32 < 0.999 or agree32_noise < 0.999:
+        fail(f"CLI checkpoint, fp32 reference path: card vs CPU {agree32}, noise {agree32_noise}")
+    return launches
 
 # profiled kernel-name fragments -> class, first match wins
 PROFILE_CLASSES = (
@@ -2000,20 +2395,26 @@ def main() -> int:
     server_launches = phase_server(torch, weights, pose_weights, yolo_weights, card)
     stencil_launches = phase_stencil_tool(torch, card)
     phase_train(torch, weights, card)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ds_root = phase_data(torch, card, Path(tmp))
+        cli_launches = phase_train_cli(torch, card, Path(tmp), ds_root)
 
     # per kernel: source, the TPU kernel it replaces, and its launches on
     # each main path that runs it, every path zeroed before and read after
     # its own run: the predictors' b128 runs and the server's 16 requests for
-    # kernels 1-4, the option predictors for 5-6, the stencil tool's run for
-    # 8 (upsample2x_add has no caller in the package: its launches are those
-    # of the kernel phase's timed run). ``launches`` is their sum.
+    # kernels 1-4, the trained CLI checkpoint's b32 predict for 1-3, the
+    # option predictors for 5-6, the stencil tool's run for 8 (upsample2x_add
+    # has no caller in the package: its launches are those of the kernel
+    # phase's timed run). ``launches`` is their sum.
     src, ref = f"{PKG}/csrc", "mtg_card_image_segmentation_tpu/ops/pallas"
     blocks_by_path = {"seg_predict_b128": sum(launches[n] for n in BLOCK_KERNELS),
-                      "server": sum(server_launches[n] for n in BLOCK_KERNELS)}
+                      "server": sum(server_launches[n] for n in BLOCK_KERNELS),
+                      "train_cli_served": sum(cli_launches[n] for n in BLOCK_KERNELS)}
     meta = {
         "fused_mask_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:190",
                               {"seg_predict_b128": launches["fused_mask_decode"],
-                               "server": server_launches["fused_mask_decode"]}),
+                               "server": server_launches["fused_mask_decode"],
+                               "train_cli_served": cli_launches["fused_mask_decode"]}),
         "fused_inverted_residual": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:515",
                                     blocks_by_path),
         "fused_tail_chain": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:393",

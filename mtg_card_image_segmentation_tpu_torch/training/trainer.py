@@ -152,7 +152,7 @@ class SegTrainer:
                         f"step {done}/{self.steps_per_epoch} "
                         f"loss={float(stats['loss']):.4f} "
                         f"lr={self.schedule(self.state.step):.2e} "
-                        f"eta={eta:.0f}s"
+                        f"{dt / done * 1e3:.1f}ms/step eta={eta:.0f}s"
                     )
             train_stats = acc.result() or metrics_lib.summarize_batch_stats(
                 metrics_lib.to_host(last_stats)

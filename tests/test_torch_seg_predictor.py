@@ -200,19 +200,22 @@ _JAX_IMPORT = re.compile(
 
 
 def test_port_sources_import_no_jax():
-    """No port source, nor chip_smoke.py, nor the card's stencil tool imports
-    jax, flax, optax, orbax or the JAX package, names a module of it without
-    ``_torch``, or imports the Orbax converter (the one tool that needs
-    JAX)."""
+    """No port source, nor chip_smoke.py, nor the card's stencil tool, nor
+    the training CLI imports jax, flax, optax, orbax or the JAX package,
+    names a module of it without ``_torch``, or imports the Orbax converter
+    (the one tool that needs JAX)."""
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "tools" / "stencil_floor_torch.py"]
+                                          REPO / "tools" / "stencil_floor_torch.py",
+                                          REPO / "train_seg_torch.py"]
     assert len(files) > 25
-    names = {f.relative_to(PORT).as_posix() for f in files[:-2]}
+    names = {f.relative_to(PORT).as_posix() for f in files[:-3]}
     assert {"serving/server.py", "serving/imagecodec.py", "models/yolo12_pose.py",
             "compression/slim.py", "export/quantize.py", "training/checkpoint.py",
             "ops/kernels/stencil_floor.py", "config.py", "losses.py", "metrics.py",
             "utils/logging.py", "training/optim.py", "training/state.py",
-            "training/loop.py", "training/trainer.py"} <= names
+            "training/loop.py", "training/trainer.py", "data/warp.py", "data/augment.py",
+            "data/synthetic.py", "data/preprocess.py", "data/dataset.py",
+            "data/pipeline.py", "data/__init__.py"} <= names
     for f in files:
         text = f.read_text()
         assert not _JAX_IMPORT.search(text), f
@@ -224,9 +227,9 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module, chip_smoke.py and tools/stencil_floor_torch.py
-    import in a process where importing jax, flax, orbax, optax or the JAX
-    package fails."""
+    """Every port module, chip_smoke.py, tools/stencil_floor_torch.py and
+    train_seg_torch.py import in a process where importing jax, flax,
+    orbax, optax or the JAX package fails."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in PORT.rglob("*.py")
@@ -236,7 +239,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'flax', 'orbax', 'optax', 'mtg_card_image_segmentation_tpu'):\n"
         "    sys.modules[m] = None\n"
         "sys.path.insert(0, 'tools')\n"
-        f"for m in {mods + ['chip_smoke', 'stencil_floor_torch']!r}:\n"
+        f"for m in {mods + ['chip_smoke', 'stencil_floor_torch', 'train_seg_torch']!r}:\n"
         "    importlib.import_module(m)\n"
         "print('ok')\n"
     )
