@@ -49,7 +49,16 @@ also at 320x240 b128 and b1 from that predictor's features and at a ragged
   the draws' rates;
 - ``train_seg_torch.py`` in subprocesses (``train_cli``): the synthetic
   source, a resume, the file source, and the synthetic run's checkpoint
-  served through kernels 1-3 (``launches_by_path``'s ``train_cli_served``).
+  served through kernels 1-3 (``launches_by_path``'s ``train_cli_served``);
+- ``evaluate_seg_torch.py``, ``prune_seg_torch.py`` and
+  ``export_seg_torch.py`` in subprocesses on that checkpoint
+  (``compress_export``): evaluation on both sources (and the evaluator
+  card vs CPU in this process), expansion pruning with a masked fine-tune
+  and magnitude pruning, the ONNX package of the slimmed pruned model and
+  of the dense one, each gated by the CLI with the torch executor on the
+  card; then the pruned model slimmed and served through kernels 1-3
+  (``compress_export_served``), held against the CPU and against its
+  exported graph.
 
 It also profiles a few b128 ``predict`` calls of the three
 predictors: device time by kernel class and the card's idle share.
@@ -2158,22 +2167,26 @@ def phase_data(torch, card, root: Path) -> Path:
     return ds_root
 
 
-def _cli(args, name: str, root: Path) -> dict:
-    """``train_seg_torch.py`` in a subprocess: its wall time, the ms/step it
-    logs, the device it reports; its output is kept in ``root``."""
-    cmd = [sys.executable, str(ROOT / "train_seg_torch.py"), *args]
+def _cli(args, name: str, root: Path, script: str = "train_seg_torch.py",
+         exits=(0,)) -> dict:
+    """One of the port's CLIs (``script``) in a subprocess: its exit code,
+    wall time, the ms/step it logs, the device it reports, its log lines of
+    note; its output is kept in ``root``. An exit code not in ``exits``
+    fails; a caller that allows another reads the log to say why."""
+    cmd = [sys.executable, str(ROOT / script), *args]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
     (root / f"{name}.log").write_text(out.stdout + out.stderr)
-    if out.returncode != 0:
-        fail(f"train_cli {name}: exit {out.returncode}: {out.stderr[-3000:]}")
+    if out.returncode not in exits:
+        fail(f"{script} {name}: exit {out.returncode}: {(out.stdout + out.stderr)[-3000:]}")
     dev = re.search(r"device (cuda.*)", out.stdout)
-    return {"run": name, "wall_seconds": seconds,
+    return {"run": name, "exit": out.returncode, "wall_seconds": seconds,
             "logged_ms_per_step": [float(x) for x in re.findall(r"([\d.]+)ms/step", out.stdout)],
             "device": dev.group(1) if dev else None,
             "log": [ln.split("] ", 1)[-1] for ln in out.stdout.splitlines()
-                    if re.search(r"ms/step|VAL|Resumed", ln)]}
+                    if re.search(r"ms/step|VAL|Resumed|parity|iou_card|sparsity|--slim|"
+                                 r"mixed-precision", ln)]}
 
 
 def phase_train_cli(torch, card, root: Path, ds_root: Path) -> dict:
@@ -2263,6 +2276,316 @@ def phase_train_cli(torch, card, root: Path, ds_root: Path) -> dict:
     if agree32 < 0.999 or agree32_noise < 0.999:
         fail(f"CLI checkpoint, fp32 reference path: card vs CPU {agree32}, noise {agree32_noise}")
     return launches
+
+CE_TOL = {"eval_confusion_share": 1e-4, "eval_iou_abs": 1e-4, "sparsity_abs": 1e-3,
+          "served_agreement": 0.999}
+ARTIFACTS = ("model.onnx", "model_fp16.onnx", "model_int8.onnx", "model_dynamic.onnx",
+             "params.npz")
+
+
+def compress_eval_card_vs_cpu(torch, ckpt: Path):
+    """``SegEvaluator`` with the fp32 model of ``ckpt`` on the card and on
+    the CPU over the same two rendered batches (320x240 b32; a threshold
+    above 1 mines every image, so the report lists each image's IoU), and
+    the evaluation's ms/batch on the card with the CLI's bf16 model (one
+    ``evaluate`` call over one batch: the forward, the analysis, the host
+    copies; median of 5 after 2)."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.config import default_config
+    from mtg_card_image_segmentation_tpu_torch.data.preprocess import normalize_only
+    from mtg_card_image_segmentation_tpu_torch.data.synthetic import NEGATIVE_PROB, synthetic_batch
+    from mtg_card_image_segmentation_tpu_torch.evaluation import SegEvaluator
+    from mtg_card_image_segmentation_tpu_torch.models import registry
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
+    from mtg_card_image_segmentation_tpu_torch.utils.params import flax_to_state_dict, from_flax
+
+    params, stats, _ = load_params(str(ckpt.parent), ckpt.name)
+    batches = []
+    for i in range(2):
+        s = synthetic_batch(torch.Generator(device="cuda").manual_seed(40_000 + i), DATA_B,
+                            *DATA_HW, NEGATIVE_PROB)
+        batches.append((normalize_only(s.image), s.mask))
+    reps = {}
+    for dev in ("cuda", "cpu"):
+        model = from_flax(params, stats, dtype=torch.float32).to(dev)
+        reps[dev] = SegEvaluator(model).evaluate(
+            [(x.to(dev), m.to(dev)) for x, m in batches], failure_iou_threshold=2.0,
+            max_failures=2 * DATA_B, worst_k=0)
+    cm = {d: np.asarray(r["confusion_matrix"]) for d, r in reps.items()}
+    iou = {d: np.asarray([f["iou"] for f in r["failures"]]) for d, r in reps.items()}
+    cfg = default_config()
+    bf16 = registry.from_config(cfg.model)
+    bf16.load_state_dict(flax_to_state_dict(params, stats), strict=True)
+    ev = SegEvaluator(bf16.to("cuda"))
+    ms = median_ms(torch, lambda: ev.evaluate([batches[0]], worst_k=0), 5, 2)
+    pixels = int(cm["cpu"].sum())
+    return {"pixels": pixels, "images": len(iou["cpu"]),
+            "confusion_card": cm["cuda"].tolist(), "confusion_cpu": cm["cpu"].tolist(),
+            "confusion_max_abs_diff_share": float(np.abs(cm["cuda"] - cm["cpu"]).max()) / pixels,
+            "per_image_iou_max_abs_diff": float(np.abs(iou["cuda"] - iou["cpu"]).max()),
+            "iou_card_card": reps["cuda"]["metrics"]["iou_card"],
+            "iou_card_cpu": reps["cpu"]["metrics"]["iou_card"],
+            "eval_ms_per_batch_bf16_b32": ms}
+
+
+def executor_card_vs_cpu(torch, export_dir: Path, params, stats) -> list:
+    """Every ONNX artifact of ``export_dir`` run by the torch executor on the
+    card and on the CPU on the export CLI's probe (standard normal, seed 0,
+    b1; the dynamic graph also at b4, seed 1). The float32 graphs (fp32,
+    dynamic, int8 QDQ) must agree within 1e-5 of the largest logit (float32
+    rounding through 52 layers; cuDNN and the CPU sum in other orders). The
+    fp16 graph runs in float16 on both: the card's logits may be no further
+    from the fp32 model's than twice the CPU's are (a wrong fp16 kernel
+    misses by its outputs' size)."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.export import onnx_proto as op
+    from mtg_card_image_segmentation_tpu_torch.export.onnx_torch_runner import make_runner
+    from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
+
+    h, w = DATA_HW
+    x1 = np.random.default_rng(0).standard_normal((1, 3, h, w)).astype(np.float32)
+    x4 = np.random.default_rng(1).standard_normal((4, 3, h, w)).astype(np.float32)
+    with torch.inference_mode():
+        ref = from_flax(params, stats, dtype=torch.float32)(
+            torch.from_numpy(np.ascontiguousarray(x1.transpose(0, 2, 3, 1)))).numpy()
+    ref = ref.transpose(0, 3, 1, 2)
+    rows = []
+    for art, x in (("model.onnx", x1), ("model_dynamic.onnx", x1), ("model_dynamic.onnx", x4),
+                   ("model_int8.onnx", x1), ("model_fp16.onnx", x1)):
+        graph = op.Model.load(str(export_dir / art))
+        card, host = (make_runner(graph, dev)({"input": x})["output"] for dev in ("cuda", "cpu"))
+        row = {"artifact": art, "batch": x.shape[0], "finite": bool(np.isfinite(card).all()),
+               "card_vs_cpu_max_abs": float(np.abs(card - host).max()),
+               "logit_max_abs": float(np.abs(host).max()),
+               "mask_agreement_card_vs_cpu": float((card.argmax(1) == host.argmax(1)).mean())}
+        if art == "model_fp16.onnx":
+            row["card_vs_fp32_model"] = float(np.abs(card - ref).max())
+            row["cpu_vs_fp32_model"] = float(np.abs(host - ref).max())
+            row["pass"] = row["finite"] and row["card_vs_fp32_model"] <= 2 * row["cpu_vs_fp32_model"]
+        else:
+            row["pass"] = row["finite"] and (row["card_vs_cpu_max_abs"]
+                                             <= 1e-5 * row["logit_max_abs"])
+        rows.append(row)
+    return rows
+
+
+EXPORT_GATE = re.compile(r"^(fp32|fp16|int8|dynamic-batch) parity( b\d)?: .* (PASS|FAIL)$")
+
+
+def export_gate_verdicts(log: str) -> dict:
+    """The export CLI's final verdict per gate, from its log: ``fp32``,
+    ``fp16`` (after any mixed-precision rewrite), ``int8``, ``dynamic b1``,
+    ``dynamic b4`` -> "PASS" or "FAIL"."""
+    out = {}
+    for ln in log.splitlines():
+        m = EXPORT_GATE.match(ln)
+        if m:
+            out[m.group(1).replace("-batch", "") + (m.group(2) or "")] = m.group(3)
+    return out
+
+
+def export_gate_faults(run: dict, verdicts: dict, may_miss: frozenset) -> list:
+    """What is wrong with one export CLI run: a gate it did not report, a
+    missed gate outside ``may_miss``, or an exit code that disagrees with
+    its verdicts (0 when every gate passed, else 1)."""
+    want = ("fp32", "fp16", "int8", "dynamic b1", "dynamic b4")
+    missed = {k for k, v in verdicts.items() if v == "FAIL"}
+    bad = [f"gate {k} not reported" for k in want if k not in verdicts]
+    bad += [f"gate {k} FAIL" for k in sorted(missed - may_miss)]
+    if run["exit"] != (1 if missed else 0):
+        bad.append(f"exit {run['exit']} with verdicts {verdicts}")
+    return bad
+
+
+def phase_compress_export(torch, card, root: Path, ds_root: Path) -> dict:
+    """Evaluation, pruning and ONNX export of the ``train_cli`` phase's
+    checkpoint on the card at the default config (320x240 b32):
+    ``evaluate_seg_torch.py`` on the synthetic source (4 batches) and on the
+    data phase's test split (40 frames, the tail batch padded), the
+    evaluator card vs CPU in this process; ``prune_seg_torch.py`` with the
+    expansion method and an 8-step masked fine-tune, then the magnitude
+    method; ``export_seg_torch.py`` of the slimmed pruned checkpoint and of
+    the dense one, each gating its artifacts with the torch executor on the
+    card (fp32 < 1e-4, fp16 in probability space, int8, dynamic b1 and b4).
+    The slim export must pass every gate and exit 0. The dense checkpoint
+    of 24 training steps may miss the fp16 and int8 gates, and then exits
+    1: on a noise probe a barely trained model has many pixels near its
+    decision boundary (a seeded untrained tree misses both in both
+    packages, ``tests/test_torch_export.py``); its fp32 and dynamic gates
+    must pass. Every artifact is also held card vs CPU
+    (``executor_card_vs_cpu``). Then the pruned checkpoint is slimmed and
+    served at b32 through kernels 1-3, against the CPU and against its
+    exported ``model_dynamic.onnx``. Returns the serving call's kernel
+    launches."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.compression import sparsity_report
+    from mtg_card_image_segmentation_tpu_torch.compression.slim import (
+        expansion_channel_prune,
+        slim_seg_state,
+    )
+    from mtg_card_image_segmentation_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
+    from mtg_card_image_segmentation_tpu_torch.data.synthetic import NEGATIVE_PROB, synthetic_batch
+    from mtg_card_image_segmentation_tpu_torch.export import onnx_proto as op
+    from mtg_card_image_segmentation_tpu_torch.export.onnx_torch_runner import make_runner
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import flatten_tree, load_params
+
+    t_start = time.perf_counter()
+    h, w = DATA_HW
+    final = root / "ckpt_synthetic" / "final_model"
+    quiet = ["--failure-threshold", "0", "--worst-k", "0"]  # no panels: no matplotlib here
+    runs = [_cli(["--checkpoint", str(final), "--source", "synthetic", "--batches", "4",
+                  "--output-dir", str(root / "eval_synthetic"), *quiet],
+                 "evaluate_synthetic", root, "evaluate_seg_torch.py"),
+            _cli(["--checkpoint", str(final), "--source", "files",
+                  "--output-dir", str(root / "eval_files"), *quiet,
+                  "--set", f"data.dataset_root={ds_root}"],
+                 "evaluate_files", root, "evaluate_seg_torch.py")]
+    evals = {r: json.loads((root / r / "evaluation_report.json").read_text())
+             for r in ("eval_synthetic", "eval_files")}
+    in_process = compress_eval_card_vs_cpu(torch, final)
+
+    pruned = {m: root / f"pruned_{m}" for m in ("expansion", "magnitude")}
+    runs += [_cli(["--checkpoint", str(final), "--method", "expansion", "--amount", "0.3",
+                   "--fine-tune-epochs", "1", "--fine-tune-steps", "8", "--eval-batches", "4",
+                   "--output-dir", str(pruned["expansion"])],
+                  "prune_expansion", root, "prune_seg_torch.py"),
+             _cli(["--checkpoint", str(final), "--method", "magnitude", "--amount", "0.3",
+                   "--eval-batches", "4", "--output-dir", str(pruned["magnitude"])],
+                  "prune_magnitude", root, "prune_seg_torch.py")]
+    prune_reports = {m: json.loads((d / "pruning_report.json").read_text())
+                     for m, d in pruned.items()}
+    base_params, _, _ = load_params(str(final.parent), final.name)
+    _, masks = expansion_channel_prune(base_params, 0.3)
+    saved = {m: load_params(str(d), "pruned_model") for m, d in pruned.items()}
+    flat_saved = flatten_tree(saved["expansion"][0])
+    masked_nonzero = sum(int((flat_saved[k][v == 0] != 0).sum())
+                         for k, v in flatten_tree(masks).items())
+    sparsity_file = {m: sparsity_report(p)["global_sparsity"] for m, (p, _, _) in saved.items()}
+
+    # the export: the CLI gates its artifacts on the card and exits 1 when
+    # a gate misses (export_seg.py's verdict); every artifact is then run by
+    # the executor on the card and on the CPU
+    may_miss = {"slim": frozenset(), "dense": frozenset({"fp16", "int8"})}
+    sp, ss, overrides = slim_seg_state(saved["expansion"][0], saved["expansion"][1])
+    sources = {"slim": (sp, ss), "dense": load_params(str(final.parent), final.name)[:2]}
+    exports = {"slim": root / "export_slim", "dense": root / "export_dense"}
+    export_runs = {
+        "slim": _cli(["--checkpoint", str(pruned["expansion"] / "pruned_model"), "--slim",
+                      "--output-dir", str(exports["slim"])], "export_slim", root,
+                     "export_seg_torch.py"),
+        "dense": _cli(["--checkpoint", str(final), "--output-dir", str(exports["dense"])],
+                      "export_dense", root, "export_seg_torch.py", exits=(0, 1))}
+    runs += list(export_runs.values())
+    exported = {}
+    for k, d in exports.items():
+        log = (root / f"export_{k}.log").read_text()
+        verdicts = export_gate_verdicts(log)
+        exported[k] = {
+            "cli_exit": export_runs[k]["exit"],
+            "cli_gates": [ln for ln in log.splitlines() if re.match(r"\S+ parity", ln)],
+            "cli_verdicts": verdicts, "may_miss": sorted(may_miss[k]),
+            "cli_faults": export_gate_faults(export_runs[k], verdicts, may_miss[k]),
+            "cli_used_mixed_precision": "rewritten mixed-precision" in log,
+            "model_info_parity": (json.loads((d / "model_info.json").read_text())["parity"]
+                                  if (d / "model_info.json").exists() else None),
+            "export_seconds": json.loads(re.search(r"export seconds (\{.*\})", log).group(1)),
+            "sizes_mb": {a: (d / a).stat().st_size / 1e6 for a in ARTIFACTS},
+            "executor_card_vs_cpu": executor_card_vs_cpu(torch, d, *sources[k])}
+    # the pruned checkpoint, slimmed, served through kernels 1-3
+    pred = SegPredictor(sp, ss, h, w)
+    s = synthetic_batch(torch.Generator(device="cuda").manual_seed(30_000), DATA_B, h, w,
+                        NEGATIVE_PROB)
+    imgs = (s.image * 255).round().clamp(0, 255).to(torch.uint8)
+    pred.predict(imgs)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    masks_card = pred.predict(imgs)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    host = imgs[:4].cpu().numpy()
+    agree_cpu = pred.mask_agreement(SegPredictor(sp, ss, h, w, device="cpu"), host)
+    ref32 = SegPredictor(sp, ss, h, w, dtype=torch.float32, use_kernels=False)
+    mean = np.asarray(IMAGENET_MEAN, np.float32)
+    std = np.asarray(IMAGENET_STD, np.float32)
+
+    def onnx_input(u8):
+        return np.ascontiguousarray(((u8.astype(np.float32) / 255.0 - mean) / std)
+                                    .transpose(0, 3, 1, 2))
+
+    dyn = make_runner(op.Model.load(str(exports["slim"] / "model_dynamic.onnx")))
+    onnx_mask = dyn({"input": onnx_input(host)})["output"].argmax(axis=1)
+    agree_onnx = float((ref32.predict(host).cpu().numpy() == onnx_mask).mean())
+
+    # the executor's ms per call beside the fp32 reference path on the same input
+    timing = {}
+    for k, d in exports.items():
+        ref = SegPredictor(*sources[k], h, w, dtype=torch.float32, use_kernels=False)
+        static = make_runner(op.Model.load(str(d / "model.onnx")))
+        dynamic = make_runner(op.Model.load(str(d / "model_dynamic.onnx")))
+        x1, x4 = onnx_input(host[:1]), onnx_input(host)
+        timing[k] = {
+            "runner_model_onnx_b1_ms": median_ms(torch, lambda: static({"input": x1}), 5, 2),
+            "runner_model_dynamic_onnx_b4_ms": median_ms(torch, lambda: dynamic({"input": x4}),
+                                                         5, 2),
+            "seg_predictor_fp32_reference_b1_ms": median_ms(
+                torch, lambda: ref.predict(host[:1]).cpu(), 5, 2),
+            "seg_predictor_fp32_reference_b4_ms": median_ms(
+                torch, lambda: ref.predict(host).cpu(), 5, 2)}
+
+    emit({"phase": "compress_export", "size": [h, w], "batch": DATA_B,
+          "runs": [{k: v for k, v in r.items() if k != "logged_ms_per_step"} | (
+              {"fine_tune_ms_per_step": r["logged_ms_per_step"]} if r["logged_ms_per_step"]
+              else {}) for r in runs],
+          "evaluate": {k: {"num_images": v["num_images"], "iou_card": v["metrics"]["iou_card"],
+                           "pixel_accuracy": v["metrics"]["pixel_accuracy"],
+                           "confusion_matrix": v["confusion_matrix"]}
+                       for k, v in evals.items()},
+          "evaluator_card_vs_cpu": in_process,
+          "prune": {m: {"iou_card_before": r["before"]["iou_card"],
+                        "iou_card_after": r["after"]["iou_card"],
+                        "sparsity_reported": r["sparsity"]["global_sparsity"],
+                        "sparsity_in_file": sparsity_file[m]}
+                    for m, r in prune_reports.items()},
+          "expansion_masked_entries_nonzero_in_file": masked_nonzero,
+          "export": exported,
+          "served": {"expanded_widths": list(overrides), "launches": launches,
+                     "foreground_fraction": float(masks_card.float().mean()),
+                     "pixel_accuracy": float((masks_card == s.mask).float().mean()),
+                     "bf16_card_vs_cpu_agreement": agree_cpu,
+                     "fp32_reference_vs_onnx_dynamic_b4_agreement": agree_onnx},
+          "timing": timing, "tolerance": CE_TOL,
+          "seconds": time.perf_counter() - t_start,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    bad = []
+    if any(r["device"] is None or not r["device"].startswith("cuda") for r in runs):
+        bad.append(f"a CLI ran off the card: {[r['device'] for r in runs]}")
+    if evals["eval_files"]["num_images"] != DATA_FRAMES[1]:
+        bad.append(f"files evaluation counted {evals['eval_files']['num_images']} images")
+    if in_process["confusion_max_abs_diff_share"] > CE_TOL["eval_confusion_share"]:
+        bad.append(f"evaluator card vs CPU confusion {in_process['confusion_max_abs_diff_share']}")
+    if in_process["per_image_iou_max_abs_diff"] > CE_TOL["eval_iou_abs"]:
+        bad.append(f"evaluator card vs CPU IoU {in_process['per_image_iou_max_abs_diff']}")
+    if masked_nonzero:
+        bad.append(f"{masked_nonzero} pruned entries are nonzero after the fine-tune")
+    if sparsity_file["expansion"] != prune_reports["expansion"]["sparsity"]["global_sparsity"]:
+        bad.append("expansion sparsity moved in the fine-tune")
+    if abs(sparsity_file["magnitude"] - 0.3) > CE_TOL["sparsity_abs"]:
+        bad.append(f"magnitude sparsity {sparsity_file['magnitude']}")
+    for k, v in exported.items():
+        bad += [f"export {k} CLI: {f}" for f in v["cli_faults"]]
+        bad += [f"export {k}: {r}" for r in v["executor_card_vs_cpu"] if not r["pass"]]
+    if agree_cpu < CE_TOL["served_agreement"] or agree_onnx < CE_TOL["served_agreement"]:
+        bad.append(f"served pruned model: card vs CPU {agree_cpu}, vs ONNX {agree_onnx}")
+    if bad:
+        fail(f"compress_export: {bad}")
+    _check_seg_launches("compress_export_served", launches)
+    return launches
+
 
 # profiled kernel-name fragments -> class, first match wins
 PROFILE_CLASSES = (
@@ -2398,23 +2721,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         ds_root = phase_data(torch, card, Path(tmp))
         cli_launches = phase_train_cli(torch, card, Path(tmp), ds_root)
+        ce_launches = phase_compress_export(torch, card, Path(tmp), ds_root)
 
     # per kernel: source, the TPU kernel it replaces, and its launches on
     # each main path that runs it, every path zeroed before and read after
     # its own run: the predictors' b128 runs and the server's 16 requests for
-    # kernels 1-4, the trained CLI checkpoint's b32 predict for 1-3, the
-    # option predictors for 5-6, the stencil tool's run for 8 (upsample2x_add
+    # kernels 1-4, the trained CLI checkpoint's b32 predict and the pruned,
+    # slimmed one's for 1-3, the option predictors for 5-6, the stencil tool's run for 8 (upsample2x_add
     # has no caller in the package: its launches are those of the kernel
     # phase's timed run). ``launches`` is their sum.
     src, ref = f"{PKG}/csrc", "mtg_card_image_segmentation_tpu/ops/pallas"
     blocks_by_path = {"seg_predict_b128": sum(launches[n] for n in BLOCK_KERNELS),
                       "server": sum(server_launches[n] for n in BLOCK_KERNELS),
-                      "train_cli_served": sum(cli_launches[n] for n in BLOCK_KERNELS)}
+                      "train_cli_served": sum(cli_launches[n] for n in BLOCK_KERNELS),
+                      "compress_export_served": sum(ce_launches[n] for n in BLOCK_KERNELS)}
     meta = {
         "fused_mask_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:190",
                               {"seg_predict_b128": launches["fused_mask_decode"],
                                "server": server_launches["fused_mask_decode"],
-                               "train_cli_served": cli_launches["fused_mask_decode"]}),
+                               "train_cli_served": cli_launches["fused_mask_decode"],
+                               "compress_export_served": ce_launches["fused_mask_decode"]}),
         "fused_inverted_residual": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:515",
                                     blocks_by_path),
         "fused_tail_chain": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:393",

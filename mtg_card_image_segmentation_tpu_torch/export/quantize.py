@@ -1,13 +1,20 @@
-"""int8 weight quantization of a folded param tree (the parameter half of
-the JAX package's ``export/quantize.py``; the ONNX QDQ conversion is not
-part of the port yet).
+"""int8 weight quantization (counterpart of the JAX package's
+``export/quantize.py``). Two consumers:
+
+- :func:`convert_to_int8`: fp32 ONNX graph -> QDQ form. Every Conv /
+  ConvTranspose weight is replaced by a per-output-channel symmetric int8
+  tensor + a DequantizeLinear node (the standard ONNX quantization format);
+  compute stays fp32, and the file shrinks ~4x. ``export_seg_torch.py``
+  gates it on mask agreement with the fp32 graph.
+- :func:`quantize_params`: the same scheme on a folded param tree, for the
+  serving predictor's int8 mode, which keeps the kernels on the card as
+  int8 plus float32 scales and multiplies them out to dense weights in the
+  compute dtype; compute stays in that dtype, so accuracy is governed by
+  the weight rounding alone and a deployment is gated on mask agreement
+  with the unquantized predictor.
 
 Symmetric per output channel: ``scale_o = max|W[..., o]| / 127``,
-``W_q = round(W / scale)``. The serving predictor's int8 mode keeps the
-kernels on the card as int8 plus float32 scales and multiplies them out to
-dense weights in the compute dtype; compute stays in that dtype, so accuracy
-is governed by the weight rounding alone and a deployment is gated on mask
-agreement with the unquantized predictor.
+``W_q = round(W / scale)``.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from mtg_card_image_segmentation_tpu_torch.export import onnx_proto as op
 
 
 def _quantize_channelwise(w: np.ndarray, axis: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -27,6 +36,49 @@ def _quantize_channelwise(w: np.ndarray, axis: int) -> Tuple[np.ndarray, np.ndar
     shape[axis] = -1
     q = np.clip(np.round(w / scale.reshape(shape)), -127, 127).astype(np.int8)
     return q, scale
+
+
+def convert_to_int8(model: op.Model) -> op.Model:
+    """fp32 ONNX -> QDQ int8-weight ONNX (opset must be >= 13 for per-axis
+    DequantizeLinear; the exporter emits 17)."""
+    if model.opset < 13:
+        raise ValueError(f"per-axis DequantizeLinear needs opset >= 13, got {model.opset}")
+    # weight initializers consumed (only) as Conv/ConvTranspose input 1
+    weight_users: Dict[str, list] = {}
+    for n in model.nodes:
+        for slot, i in enumerate(n.inputs):
+            weight_users.setdefault(i, []).append((n.op_type, slot))
+
+    inits, nodes = [], []
+    for t in model.initializers:
+        users = weight_users.get(t.name, [])
+        is_conv_weight = (
+            t.array.dtype == np.float32
+            and t.array.ndim == 4
+            and users
+            and all(u == ("Conv", 1) or u == ("ConvTranspose", 1) for u in users)
+        )
+        if not is_conv_weight:
+            inits.append(t)
+            continue
+        # Conv weights are OIHW (axis 0 = output channel); ConvTranspose are
+        # IOHW (axis 1). Mixed consumption can't happen (name is unique).
+        axis = 0 if users[0][0] == "Conv" else 1
+        q, scale = _quantize_channelwise(t.array, axis)
+        qname, sname = t.name + "_q", t.name + "_qscale"
+        inits.append(op.Tensor(qname, q))
+        inits.append(op.Tensor(sname, scale))
+        nodes.append(
+            op.Node(
+                "DequantizeLinear", [qname, sname], [t.name],
+                t.name + "_dq", {"axis": axis},
+            )
+        )
+    return op.Model(
+        model.graph_name, nodes + list(model.nodes), inits,
+        list(model.inputs), list(model.outputs), model.opset,
+        model.producer, model.doc,
+    )
 
 
 def quantize_params(folded: Dict, min_size: int = 512) -> Dict:

@@ -89,7 +89,9 @@ def flax_to_state_dict(params: Dict[str, Any],
 
 def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Inverse of :func:`flax_to_state_dict`: (params, batch_stats) numpy
-    trees in the Flax layout."""
+    trees in the Flax layout. Every leaf is a copy: a float32 CPU tensor's
+    ``.numpy()`` shares its memory, and a snapshot taken before an in-place
+    update must not move with it (the JAX package's trees are immutable)."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     inv_stats = {v: k for k, v in _STATS.items()}
@@ -110,7 +112,7 @@ def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dic
             tree, key = params, leaf
         for p in path:
             tree = tree.setdefault(p, {})
-        tree[key] = np.ascontiguousarray(a)
+        tree[key] = np.array(a, order="C", copy=True)
     return params, stats
 
 

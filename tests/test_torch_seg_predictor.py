@@ -199,23 +199,30 @@ _JAX_IMPORT = re.compile(
 )
 
 
+CLIS = ("train_seg_torch", "evaluate_seg_torch", "prune_seg_torch", "export_seg_torch")
+TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch")
+
+
 def test_port_sources_import_no_jax():
-    """No port source, nor chip_smoke.py, nor the card's stencil tool, nor
-    the training CLI imports jax, flax, optax, orbax or the JAX package,
-    names a module of it without ``_torch``, or imports the Orbax converter
+    """No port source, nor chip_smoke.py, nor the card's two tools, nor
+    the port's CLIs import jax, flax, optax, orbax or the JAX package,
+    name a module of it without ``_torch``, or import the Orbax converter
     (the one tool that needs JAX)."""
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "tools" / "stencil_floor_torch.py",
-                                          REPO / "train_seg_torch.py"]
+    outside = [REPO / "chip_smoke.py", *(REPO / "tools" / f"{t}.py" for t in TOOLS),
+               *(REPO / f"{c}.py" for c in CLIS)]
+    files = sorted(PORT.rglob("*.py")) + outside
     assert len(files) > 25
-    names = {f.relative_to(PORT).as_posix() for f in files[:-3]}
+    names = {f.relative_to(PORT).as_posix() for f in files[:-len(outside)]}
     assert {"serving/server.py", "serving/imagecodec.py", "models/yolo12_pose.py",
             "compression/slim.py", "export/quantize.py", "training/checkpoint.py",
             "ops/kernels/stencil_floor.py", "config.py", "losses.py", "metrics.py",
             "utils/logging.py", "training/optim.py", "training/state.py",
             "training/loop.py", "training/trainer.py", "data/warp.py", "data/augment.py",
             "data/synthetic.py", "data/preprocess.py", "data/dataset.py",
-            "data/pipeline.py", "data/__init__.py"} <= names
+            "data/pipeline.py", "data/__init__.py", "export/onnx_proto.py",
+            "export/onnx_optimize.py", "export/onnx_export.py", "export/onnx_torch_runner.py",
+            "evaluation/__init__.py", "evaluation/segmentation.py", "evaluation/worstk.py",
+            "utils/plots.py", "compression/prune.py", "compression/__init__.py"} <= names
     for f in files:
         text = f.read_text()
         assert not _JAX_IMPORT.search(text), f
@@ -227,8 +234,9 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module, chip_smoke.py, tools/stencil_floor_torch.py and
-    train_seg_torch.py import in a process where importing jax, flax,
+    """Every port module, chip_smoke.py, the card's two tools
+    (tools/stencil_floor_torch.py, tools/fp32_conv_accuracy_torch.py) and
+    the port's four CLIs import in a process where importing jax, flax,
     orbax, optax or the JAX package fails."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
@@ -239,7 +247,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'flax', 'orbax', 'optax', 'mtg_card_image_segmentation_tpu'):\n"
         "    sys.modules[m] = None\n"
         "sys.path.insert(0, 'tools')\n"
-        f"for m in {mods + ['chip_smoke', 'stencil_floor_torch', 'train_seg_torch']!r}:\n"
+        f"for m in {mods + ['chip_smoke', *TOOLS, *CLIS]!r}:\n"
         "    importlib.import_module(m)\n"
         "print('ok')\n"
     )
