@@ -68,29 +68,6 @@ x = (img - mean) / std
 """
 
 
-def _independent_checks(onnx_path):
-    """Validation by a component not authored alongside the exporter:
-    Google's protoc re-parses the wire format (tools/onnx_schema.proto),
-    when it is on the path. (The torch executor, the other independent
-    half, already ran every gate.)"""
-    import shutil
-    import subprocess
-
-    out = {}
-    if shutil.which("protoc"):
-        schema_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
-        with open(onnx_path, "rb") as f:
-            proc = subprocess.run(
-                ["protoc", f"-I{schema_dir}", "--decode=onnx.ModelProto",
-                 "onnx_schema.proto"],
-                stdin=f, capture_output=True, text=True, timeout=120,
-            )
-        out["protoc_decode_pass"] = proc.returncode == 0
-        print(f"independent protoc decode: "
-              f"{'PASS' if out['protoc_decode_pass'] else 'FAIL: ' + proc.stderr[:200]}")
-    return out
-
-
 def main(argv: Optional[List[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -123,6 +100,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         export_seg_model,
     )
     from mtg_card_image_segmentation_tpu_torch.export.onnx_optimize import optimize
+    from mtg_card_image_segmentation_tpu_torch.export.onnx_proto import independent_checks
     from mtg_card_image_segmentation_tpu_torch.export.quantize import convert_to_int8
     from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
     from mtg_card_image_segmentation_tpu_torch.utils.params import count_parameters, from_flax
@@ -229,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         with no_tf32():
             parity = _gates(cfg, model, device, onnx_model, fp16_model,
                             fp32_path, fp16_path, int8_path, dyn_path)
-        parity.update(_independent_checks(fp32_path))
+        parity.update(independent_checks(fp32_path))
 
     info = {
         "model": cfg.model.name,

@@ -1,7 +1,8 @@
-"""Input pipelines on one device (counterpart of the segmentation half of
-the JAX package's ``data/pipeline.py``): a synthetic stream rendered and
-augmented on the device, and a file stream decoded on the host and
-resized, augmented and normalized on the device.
+"""Input pipelines on one device (counterpart of the JAX package's
+``data/pipeline.py``): a synthetic stream rendered and augmented on the
+device, its corner-keypoint variant with Gaussian heatmap targets, and a
+file stream decoded on the host and resized, augmented and normalized on
+the device.
 
 Both replace the reference's torch DataLoader (train/dataset.py:208-260,
 4 CPU workers doing decode + augment per sample).
@@ -59,6 +60,56 @@ class SyntheticPipeline:
         return normalize_only(sample.image), sample.mask
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        while True:
+            yield self.next_batch()
+
+
+class PoseSyntheticPipeline:
+    """Infinite stream of (images01, target_heatmaps, corners_px) on the
+    device for the corner-keypoint pipelines: (B,H,W,3) float32 images
+    /255 only (no ImageNet normalization, inference_test.py:167-169),
+    (B,hm_h,hm_w,K) Gaussian targets with ``sigma`` 2
+    (train-pose-estimation_custom/dataset.py:317-331), (B,4,2) corners in
+    canonical image-space TL,TR,BR,BL order. Negatives are off (corner
+    annotations exist only for card images) and the base scene keeps its
+    corners in view. One ``torch.Generator`` on the device, seeded from
+    ``seed``, draws them all. (A flip's corner reordering, the JAX
+    pipeline's ``FLIP_IDX``, is the re-canonicalisation in
+    ``synthetic.render_augmented_scene``.)"""
+
+    def __init__(self, batch_size: int, height: int, width: int, heatmap_height: int,
+                 heatmap_width: int, sigma: float = 2.0,
+                 augment: Optional[AugmentConfig] = None, seed: int = 0,
+                 device=None) -> None:
+        self.batch_size = batch_size
+        self.height, self.width = height, width
+        self.heatmap_hw = (heatmap_height, heatmap_width)
+        self.sigma = sigma
+        self.augment = augment
+        self.device = resolve_device(device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def next_batch(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        from mtg_card_image_segmentation_tpu_torch.ops.heatmap import (
+            gaussian_heatmaps_batch,
+            pixels_to_heatmap_coords,
+        )
+
+        aug, h, w = self.augment, self.height, self.width
+        if aug is not None and aug.enabled:
+            # fused render + augment, keypoint path: no elastic/grid, so the
+            # corners stay exact; the affine may still push some out of view
+            sample = synthetic_augmented_batch(
+                self._gen, self.batch_size, h, w, 0.0, aug, with_displacement=False,
+                keep_in_frame=True)
+        else:
+            sample = synthetic_batch(self._gen, self.batch_size, h, w, 0.0,
+                                     keep_in_frame=True)
+        hm_coords = pixels_to_heatmap_coords(sample.corners, (h, w), self.heatmap_hw)
+        targets = gaussian_heatmaps_batch(hm_coords, *self.heatmap_hw, self.sigma)
+        return sample.image, targets, sample.corners
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         while True:
             yield self.next_batch()
 

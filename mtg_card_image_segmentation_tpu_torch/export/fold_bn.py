@@ -7,6 +7,9 @@ with running stats {"bn": {mean, var}}:
     g = scale / sqrt(var + eps)            (per output channel)
     kernel' = kernel * g                    (broadcast over HWIO -> O)
     bias'   = bn_bias - mean * g  [+ conv_bias * g]
+
+The HRNet head's transpose-conv pairs (``deconvN`` + ``deconv_bnN``, the
+kernel (kh, kw, in, out)) fold the same way.
 """
 
 from __future__ import annotations
@@ -33,20 +36,25 @@ def _fold_one(conv: Dict[str, Any], bn_params: Dict[str, Any], bn_stats: Dict[st
 
 
 def fold_batch_norm(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> Dict[str, Any]:
-    """Recursively fold every sibling (conv, bn) pair. Returns a new tree
-    for the ``fold_bn=True`` model (bn subtrees removed, conv gains a
-    bias)."""
+    """Recursively fold every sibling (conv, bn) pair and every (deconvN,
+    deconv_bnN) pair. Returns a new tree for the ``fold_bn=True`` model (bn
+    subtrees removed, conv and deconv gain a bias)."""
 
     def rec(p: Any, s: Any) -> Any:
         if not isinstance(p, dict):
             return p
+        stats = s if isinstance(s, dict) else {}
         out: Dict[str, Any] = {}
         if "conv" in p and isinstance(p.get("bn"), dict):
-            out["conv"] = _fold_one(p["conv"], p["bn"], (s or {}).get("bn", {}))
+            out["conv"] = _fold_one(p["conv"], p["bn"], stats.get("bn", {}))
         for key in p:
-            if key in out or (key == "bn" and "conv" in out):
+            if key in out or (key == "bn" and "conv" in out) or key.startswith("deconv_bn"):
                 continue
-            out[key] = rec(p[key], (s or {}).get(key) if isinstance(s, dict) else None)
+            bn_key = "deconv_bn" + key[len("deconv"):]
+            if key.startswith("deconv") and bn_key in p:
+                out[key] = _fold_one(p[key], p[bn_key], stats.get(bn_key, {}))
+            else:
+                out[key] = rec(p[key], stats.get(key))
         return out
 
     return rec(params, batch_stats)

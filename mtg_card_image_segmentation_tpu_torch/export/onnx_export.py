@@ -12,11 +12,15 @@ hardswish is decomposed as x*HardSigmoid(x) (torch opset-11/13 convention;
 the demo notes the WebGL HardSigmoid gap and falls back to WASM,
 demo/README.md:46-48).
 
-The segmentation half of the JAX package's ``export/onnx_export.py``,
-copied: the graph builder's layer helpers, ``export_seg_model``,
-``convert_to_fp16`` and ``auto_mixed_precision``. Given the same folded
-numpy tree it writes the same bytes as the JAX writer. The pose and YOLO
-graphs (and the builder's helpers only they use) are not ported yet.
+The HRNet pose graph (``export_pose_model``) adds ConvTranspose and
+nearest Resize (asymmetric coordinates, floor) to that op set.
+
+The segmentation and pose halves of the JAX package's
+``export/onnx_export.py``, copied: the graph builder's layer helpers,
+``export_seg_model``, ``export_pose_model``, ``convert_to_fp16`` and
+``auto_mixed_precision``. Given the same folded numpy tree it writes the
+same bytes as the JAX writer. The YOLO graph (and the builder's tensor ops
+only it uses) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from mtg_card_image_segmentation_tpu_torch.export import onnx_proto as op
+from mtg_card_image_segmentation_tpu_torch.models.hrnet import (
+    BOTTLENECK_EXPANSION,
+    STAGE1_PLANES,
+    W18_SMALL_BLOCKS,
+    W18_SMALL_CHANNELS,
+)
 from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
     LOW_TAP_ROW,
     MOBILENET_V3_LARGE_ROWS,
@@ -111,6 +121,49 @@ class GraphBuilder:
         return self.node(
             "Resize", self._resize_inputs(x, n, c, h, w, hint, scale), hint,
             mode="linear", coordinate_transformation_mode="half_pixel",
+        )
+
+    def resize_nearest_to(self, x: str, n: int, c: int, h: int, w: int,
+                          hint: str, scale=None) -> str:
+        """Nearest upsample, torch convention (src = floor(dst*in/out)):
+        asymmetric + floor — exactly ops/resize.py nearest_resize."""
+        return self.node(
+            "Resize", self._resize_inputs(x, n, c, h, w, hint, scale), hint,
+            mode="nearest", coordinate_transformation_mode="asymmetric",
+            nearest_mode="floor",
+        )
+
+    def conv_transpose(
+        self, x: str, kernel_hwio: np.ndarray, bias: Optional[np.ndarray],
+        hint: str, stride: int = 2,
+    ) -> str:
+        """Emit ONNX ConvTranspose equivalent to flax ``nn.ConvTranspose``
+        (padding='SAME', transpose_kernel=False, output = input*stride).
+
+        Flax computes zero-insertion + *unflipped* correlation with the HWIO
+        kernel and SAME pads pad_a = ceil((k+s-2)/2); ONNX ConvTranspose is
+        zero-insertion + correlation with the spatially-flipped (I,O,kh,kw)
+        weight at effective pads (k-1-p). Equality holds with
+        W_onnx[i,o,kh,kw] = flip_hw(K)[kh,kw,i,o] and p = k-1-pad_a.
+        """
+        k = kernel_hwio.shape[0]
+        pad_a = -(-(k + stride - 2) // 2)  # ceil
+        p = k - 1 - pad_a
+        if p < 0:
+            raise ValueError(f"no ONNX padding for kernel {k}, stride {stride}")
+        w = self.init_tensor(
+            self.fresh(hint + "_w"),
+            np.ascontiguousarray(
+                np.transpose(np.flip(kernel_hwio, (0, 1)), (2, 3, 0, 1))
+            ).astype(kernel_hwio.dtype),
+        )
+        inputs = [x, w]
+        if bias is not None:
+            inputs.append(self.init_tensor(self.fresh(hint + "_b"), bias))
+        return self.node(
+            "ConvTranspose", inputs, hint,
+            kernel_shape=[k, k], strides=[stride, stride],
+            pads=[p, p, p, p],
         )
 
     def global_avg_pool(self, x: str, hint: str = "gap") -> str:
@@ -227,6 +280,149 @@ def export_seg_model(
             "LR-ASPP MobileNetV3-Large card segmentation, exported by "
             "mtg_card_image_segmentation_tpu (BN folded). Input: ImageNet-"
             "normalized NCHW fp32. Output: class logits (0=background, 1=card)."
+        ),
+    )
+
+
+def export_pose_model(
+    folded_params: Dict,
+    input_hw: Tuple[int, int] = (480, 640),
+    heatmap_hw: Tuple[int, int] = (120, 160),
+    num_keypoints: int = 4,
+    batch: int = 1,
+    opset: int = 19,
+    dynamic_batch: bool = False,
+) -> op.Model:
+    """Folded HRNet-pose params -> ONNX Model.
+
+    ``dynamic_batch`` emits a symbolic batch axis and scales-based Resizes
+    (the reference exports dynamic batch by default,
+    train-pose-estimation_custom/export_onnx.py:74-95).
+
+    Deployment contract of the custom pose pipeline
+    (train-pose-estimation_custom/export_onnx.py:74-95): input "input"
+    (N,3,H,W) fp32 scaled to [0,1] (/255 only — no ImageNet normalization,
+    inference_test.py:167-169), output "heatmaps" (N,K,hm_h,hm_w). Opset 19
+    matches the reference's export. The graph emission mirrors
+    models/hrnet.py dataflow exactly (W18-small: stem s4, 1 bottleneck,
+    3 stages growing branches (16,32),(16,32,64),(16,32,64,128), full
+    cross-resolution fusion, deconv head).
+    """
+    h, w = input_hw
+    g = GraphBuilder()
+    bb = folded_params["backbone"]
+    head = folded_params["head"]
+
+    def cba(x, sub, hint, stride=1, act="relu", groups=1):
+        y = g.conv(x, _np(sub, "conv", "kernel"), _np(sub, "conv", "bias"),
+                   hint, stride=stride, groups=groups)
+        return g.act(y, act, hint)
+
+    def basic_block(x, sub, hint, in_ch, out_ch):
+        y = cba(x, sub["conv1"], hint + "_c1")
+        y = cba(y, sub["conv2"], hint + "_c2", act=None)
+        if in_ch != out_ch:
+            x = cba(x, sub["proj"], hint + "_proj", act=None)
+        y = g.node("Add", [y, x], hint + "_add")
+        return g.node("Relu", [y], hint + "_relu")
+
+    def bottleneck(x, sub, hint, in_ch):
+        out_ch = STAGE1_PLANES * BOTTLENECK_EXPANSION
+        y = cba(x, sub["conv1"], hint + "_c1")
+        y = cba(y, sub["conv2"], hint + "_c2")
+        y = cba(y, sub["conv3"], hint + "_c3", act=None)
+        if in_ch != out_ch:
+            x = cba(x, sub["proj"], hint + "_proj", act=None)
+        y = g.node("Add", [y, x], hint + "_add")
+        return g.node("Relu", [y], hint + "_relu"), out_ch
+
+    # stem: 2x stride-2 conv -> 64 @ s4
+    x = cba("input", bb["stem1"], "stem1", stride=2)
+    x = cba(x, bb["stem2"], "stem2", stride=2)
+    x, ch = bottleneck(x, bb["stage1_block0"], "stage1", 64)
+
+    # branch sizes at strides 4/8/16/32
+    sizes = [(h // 4, w // 4), (h // 8, w // 8), (h // 16, w // 16), (h // 32, w // 32)]
+
+    branches = [x]
+    branch_ch = [ch]
+    for stage_idx, channels in enumerate(W18_SMALL_CHANNELS):
+        new_branches, new_ch = [], []
+        for b, c in enumerate(channels):
+            if b < len(branches):
+                src = branches[b]
+                if branch_ch[b] != c:
+                    src = cba(src, bb[f"t{stage_idx}_b{b}"], f"t{stage_idx}_b{b}")
+            else:
+                src = cba(branches[-1], bb[f"t{stage_idx}_b{b}"],
+                          f"t{stage_idx}_b{b}", stride=2)
+            for blk in range(W18_SMALL_BLOCKS):
+                src = basic_block(
+                    src, bb[f"s{stage_idx}_b{b}_blk{blk}"],
+                    f"s{stage_idx}_b{b}_blk{blk}", c, c,
+                )
+            new_branches.append(src)
+            new_ch.append(c)
+        # full cross-resolution fusion (models/hrnet.py FuseLayer)
+        fuse = bb[f"fuse{stage_idx}"]
+        fused = []
+        for i, out_c in enumerate(channels):
+            acc = None
+            for j, src in enumerate(new_branches):
+                if j == i:
+                    y = src
+                elif j < i:
+                    y = src
+                    for s in range(i - j):
+                        last = s == i - j - 1
+                        y = cba(y, fuse[f"down{i}_{j}_{s}"],
+                                f"f{stage_idx}_d{i}_{j}_{s}", stride=2,
+                                act=None if last else "relu")
+                else:
+                    y = cba(src, fuse[f"up{i}_{j}"], f"f{stage_idx}_u{i}_{j}",
+                            act=None)
+                    y = g.resize_nearest_to(
+                        y, batch, out_c, *sizes[i], f"f{stage_idx}_u{i}_{j}_rs",
+                        scale=(float(2 ** (j - i)),) * 2 if dynamic_batch
+                        else None,
+                    )
+                acc = y if acc is None else g.node(
+                    "Add", [acc, y], f"f{stage_idx}_o{i}_add{j}"
+                )
+            fused.append(g.node("Relu", [acc], f"f{stage_idx}_o{i}_relu"))
+        branches, branch_ch = fused, list(channels)
+
+    # head on the deepest branch (stride 32): 2x deconv, 2x 3x3 conv, 1x1
+    x = branches[-1]
+    for i in range(2):
+        x = g.conv_transpose(
+            x, _np(head, f"deconv{i}", "kernel"), _np(head, f"deconv{i}", "bias"),
+            f"deconv{i}", stride=2,
+        )
+        x = g.node("Relu", [x], f"deconv{i}_relu")
+    for i in range(2):
+        x = cba(x, head[f"conv{i}"], f"head_conv{i}")
+    x = g.conv(x, _np(head, "final", "kernel"), _np(head, "final", "bias"), "final")
+    hm_h, hm_w = heatmap_hw
+    g.resize_to(x, batch, num_keypoints, hm_h, hm_w, "up_hm",
+                scale=(2.0, 2.0) if dynamic_batch else None)
+    g.nodes[-1].outputs = ["heatmaps"]
+
+    return op.Model(
+        graph_name="card_corner_pose",
+        nodes=g.nodes,
+        initializers=g.initializers,
+        inputs=[("input", op.FLOAT,
+                 (None if dynamic_batch else batch, 3, h, w))],
+        outputs=[("heatmaps", op.FLOAT,
+                  (None if dynamic_batch else batch, num_keypoints,
+                   hm_h, hm_w))],
+        opset=opset,
+        doc=(
+            "HRNet-W18-small corner-keypoint heatmap model, exported by "
+            "mtg_card_image_segmentation_tpu (BN folded). Input: NCHW fp32 "
+            "in [0,1] (/255 only, no ImageNet normalization). Output: K "
+            "corner heatmaps at heatmap resolution."
         ),
     )
 

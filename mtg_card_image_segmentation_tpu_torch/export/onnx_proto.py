@@ -400,3 +400,29 @@ class Model:
     def load(cls, path: str) -> "Model":
         with open(path, "rb") as f:
             return cls.parse(f.read())
+
+
+def independent_checks(onnx_path: str) -> Dict[str, bool]:
+    """Validation of a written file by a component not authored alongside
+    this writer: Google's ``protoc`` re-parses the wire format against the
+    repo's ``tools/onnx_schema.proto``, when it is on the path (the torch
+    executor, the other independent half, runs every parity gate).
+    Returns ``{"protoc_decode_pass": bool}``, or ``{}`` without protoc."""
+    import os
+    import shutil
+    import subprocess
+
+    out: Dict[str, bool] = {}
+    if shutil.which("protoc"):
+        schema_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  os.pardir, os.pardir, "tools")
+        with open(onnx_path, "rb") as f:
+            proc = subprocess.run(
+                ["protoc", f"-I{os.path.normpath(schema_dir)}", "--decode=onnx.ModelProto",
+                 "onnx_schema.proto"],
+                stdin=f, capture_output=True, text=True, timeout=120,
+            )
+        out["protoc_decode_pass"] = proc.returncode == 0
+        print(f"independent protoc decode: "
+              f"{'PASS' if out['protoc_decode_pass'] else 'FAIL: ' + proc.stderr[:200]}")
+    return out

@@ -11,9 +11,9 @@ gate is evidence that the .onnx file means what ONNX says it means.
 ``device=None`` runs on the CUDA card (``utils.platform.resolve_device``);
 the CPU must be asked for with ``device="cpu"``. Initializers move to the
 device once, in :func:`make_runner`; each call moves its feeds there and
-returns numpy. Nodes run eagerly, one after another. The op set is the
-segmentation graph's (the pose and YOLO graphs' ops come with their
-exporters).
+returns numpy. Nodes run eagerly, one after another. The op set is that
+of the segmentation and HRNet pose graphs (ConvTranspose, nearest Resize);
+the YOLO graph's ops come with its exporter.
 
 Two differences from the JAX package's copy, which runs fp32 torch on the
 host:
@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from mtg_card_image_segmentation_tpu_torch.export import onnx_proto as op
+from mtg_card_image_segmentation_tpu_torch.ops.resize import nearest_indices
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 
 _CAST = {op.FLOAT: torch.float32, op.FLOAT16: torch.float16,
@@ -69,12 +70,19 @@ def make_runner(model: op.Model, device=None) -> Callable[[Dict[str, np.ndarray]
     return run
 
 
+def run_model(model: op.Model, feeds: Dict[str, np.ndarray],
+              device=None) -> Dict[str, np.ndarray]:
+    """One run of ``model`` on ``feeds`` (numpy): :func:`make_runner`'s
+    runner, called once."""
+    return make_runner(model, device)(feeds)
+
+
 def _run_node(node: op.Node, env: Dict[str, torch.Tensor],
               host: Dict[str, np.ndarray]) -> torch.Tensor:
     ins = [env[i] if i else None for i in node.inputs]
     a = node.attributes
     t = node.op_type
-    if t == "Conv":
+    if t in ("Conv", "ConvTranspose"):
         pads = a.get("pads", [0, 0, 0, 0])
         if pads[0] != pads[2] or pads[1] != pads[3]:
             raise NotImplementedError(f"asymmetric pads {pads}")
@@ -84,11 +92,15 @@ def _run_node(node: op.Node, env: Dict[str, torch.Tensor],
             # the H100 (torch 2.11, cuDNN 9.2: a 3x3 depthwise over 200
             # channels of 20x15 off by as much as its outputs); its
             # channels_last kernels, which the port's serving path uses,
-            # are right
+            # are right. Transpose convs take the same layout.
             x = x.contiguous(memory_format=torch.channels_last)
+        bias = ins[2] if len(ins) > 2 else None
+        stride = tuple(a.get("strides", [1, 1]))
+        if t == "ConvTranspose":
+            return F.conv_transpose2d(x, ins[1], bias, stride=stride,
+                                      padding=(pads[0], pads[1]))
         return F.conv2d(
-            x, ins[1], ins[2] if len(ins) > 2 else None,
-            stride=tuple(a.get("strides", [1, 1])),
+            x, ins[1], bias, stride=stride,
             padding=(pads[0], pads[1]),
             dilation=tuple(a.get("dilations", [1, 1])),
             groups=int(a.get("group", 1)),
@@ -121,9 +133,18 @@ def _run_node(node: op.Node, env: Dict[str, torch.Tensor],
                     int(math.floor(ins[0].shape[3] * float(scales[3]))))
         mode = a.get("mode", "linear")
         ctm = a.get("coordinate_transformation_mode", "half_pixel")
-        if mode != "linear" or ctm != "half_pixel":
-            raise NotImplementedError(f"Resize mode={mode} ctm={ctm}")
-        return F.interpolate(ins[0], size=size, mode="bilinear", align_corners=False)
+        if mode == "linear" and ctm == "half_pixel":
+            return F.interpolate(ins[0], size=size, mode="bilinear", align_corners=False)
+        if (mode == "nearest" and ctm == "asymmetric"
+                and a.get("nearest_mode", "round_prefer_floor") == "floor"):
+            # the exporter's convention, src = floor(dst * in / out), as
+            # ops/resize.py::nearest_resize gathers it
+            x = ins[0]
+            rows = torch.from_numpy(nearest_indices(x.shape[2], size[0])).to(x.device)
+            cols = torch.from_numpy(nearest_indices(x.shape[3], size[1])).to(x.device)
+            return x.index_select(2, rows).index_select(3, cols)
+        raise NotImplementedError(
+            f"Resize mode={mode} ctm={ctm} nearest_mode={a.get('nearest_mode')}")
     if t == "Cast":
         return ins[0].to(_CAST[int(a["to"])])
     if t == "DequantizeLinear":

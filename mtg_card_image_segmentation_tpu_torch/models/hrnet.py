@@ -26,6 +26,7 @@ from mtg_card_image_segmentation_tpu_torch.models.layers import (
     BN_EPS,
     BN_MOMENTUM,
     ConvBNAct,
+    FlaxBatchNorm2d,
     nchw,
     nhwc,
 )
@@ -177,7 +178,7 @@ class HRNetPoseHead(nn.Module):
             # k4 s2 with padding 1 is the reference's ``SAME`` transpose conv
             self.add_module(f"deconv{i}", nn.ConvTranspose2d(
                 cin, width, 4, stride=2, padding=1, bias=False))
-            self.add_module(f"deconv_bn{i}", nn.BatchNorm2d(
+            self.add_module(f"deconv_bn{i}", FlaxBatchNorm2d(
                 width, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM))
             cin = width
         self.conv0 = ConvBNAct(width, width, 3, act="relu", dtype=dtype)

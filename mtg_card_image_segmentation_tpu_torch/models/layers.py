@@ -79,6 +79,18 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` on NCHW float32 whose train mode follows Flax
+    (:func:`batch_norm_train`); eval mode reads the running statistics.
+    Every BatchNorm of the port's models is one, so that
+    ``training.loop.batch_norms`` finds them all."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return batch_norm_train(x, self)
+        return super().forward(x)
+
+
 def nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NCHW view (channels_last memory when ``x`` is contiguous)."""
     return x.permute(0, 3, 1, 2)
@@ -109,7 +121,7 @@ class ConvBNAct(nn.Module):
             bias=fold_bn and use_bn,
         )
         self.bn = (
-            nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - bn_momentum)
+            FlaxBatchNorm2d(features, eps=BN_EPS, momentum=1.0 - bn_momentum)
             if use_bn and not fold_bn else None
         )
 
@@ -122,9 +134,7 @@ class ConvBNAct(nn.Module):
         # conv's sum.
         y = F.conv2d(nchw(x.to(self.dtype)), self.conv.weight.to(self.dtype), None,
                      self.stride, self.padding, self.dilation, self.groups)
-        if self.bn is not None and self.training:
-            y = batch_norm_train(y.float(), self.bn)
-        elif self.bn is not None:
+        if self.bn is not None:
             y = self.bn(y.float())
         elif self.conv.bias is not None:
             y = y + self.conv.bias.to(y.dtype)[:, None, None]

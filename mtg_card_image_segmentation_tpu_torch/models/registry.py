@@ -9,7 +9,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from mtg_card_image_segmentation_tpu_torch.config import ModelConfig
+from mtg_card_image_segmentation_tpu_torch.config import ModelConfig, PoseModelConfig
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 
@@ -68,6 +68,21 @@ def from_config(cfg: ModelConfig):
         inter_channels=cfg.inter_channels,
         compute_dtype=cfg.compute_dtype,
         param_dtype=cfg.param_dtype,
+    )
+
+
+def pose_from_config(cfg: PoseModelConfig):
+    """The HRNet corner model of ``cfg`` (train layout, Flax momentum 0.99).
+    The JAX package also builds a momentum-0 copy for the exact BatchNorm
+    recalibration; the port recalibrates the model itself
+    (``training.loop.recalibrate_batch_stats``)."""
+    check_param_dtype(cfg.param_dtype)
+    return create_model(
+        cfg.name,
+        num_keypoints=cfg.num_keypoints,
+        heatmap_height=cfg.heatmap_height,
+        heatmap_width=cfg.heatmap_width,
+        compute_dtype=cfg.compute_dtype,
     )
 
 

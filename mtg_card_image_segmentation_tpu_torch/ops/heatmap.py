@@ -1,5 +1,6 @@
-"""Keypoint heatmap decoding (counterpart of the serving half of the JAX
-package's ``ops/heatmap.py``).
+"""Keypoint heatmap ops (counterpart of the JAX package's
+``ops/heatmap.py``): Gaussian target rendering, arg-max / sub-pixel /
+soft-argmax decoding, thresholded peak extraction.
 
 Heatmaps are NHWK (K = number of keypoints). Coordinates come back as xy
 normalized to [0, 1] by (size - 1). Every arg-max takes the first of equal
@@ -11,7 +12,44 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+
+def gaussian_heatmaps(centers_xy: torch.Tensor, height: int, width: int,
+                      sigma: float = 2.0) -> torch.Tensor:
+    """(K, 2) xy centers (heatmap-pixel coords) -> (H, W, K) float32
+    targets ``exp(-d^2 / (2 sigma^2))``. Centers with any negative
+    coordinate (missing keypoint) render as zeros."""
+    return gaussian_heatmaps_batch(centers_xy[None], height, width, sigma)[0]
+
+
+def gaussian_heatmaps_batch(centers_xy: torch.Tensor, height: int, width: int,
+                            sigma: float = 2.0) -> torch.Tensor:
+    """(B, K, 2) -> (B, H, W, K), one broadcast over the batch."""
+    c = centers_xy.float()
+    dev = c.device
+    x = torch.arange(width, device=dev, dtype=torch.float32)[None, None, :, None]
+    y = torch.arange(height, device=dev, dtype=torch.float32)[None, :, None, None]
+    cx = c[:, None, None, :, 0]
+    cy = c[:, None, None, :, 1]
+    d2 = (x - cx) ** 2 + (y - cy) ** 2
+    hm = torch.exp(-d2 / (2.0 * sigma ** 2))
+    valid = (c >= 0).all(dim=-1)[:, None, None, :]
+    return torch.where(valid, hm, torch.zeros_like(hm))
+
+
+def pixels_to_heatmap_coords(pixels_xy: torch.Tensor, image_hw: Tuple[int, int],
+                             heatmap_hw: Tuple[int, int]) -> torch.Tensor:
+    """Image-pixel xy -> heatmap-pixel xy (for Gaussian target rendering),
+    by the (size-1) ratio. Negative (missing) coordinates become -1."""
+    ih, iw = image_hw
+    hh, hw = heatmap_hw
+    scale = torch.tensor(np.asarray([(hw - 1) / (iw - 1), (hh - 1) / (ih - 1)], np.float32),
+                         device=pixels_xy.device)
+    scaled = pixels_xy * scale
+    keep = (pixels_xy >= 0).all(dim=-1, keepdim=True)
+    return torch.where(keep, scaled, torch.full_like(scaled, -1.0))
 
 
 def _first_arg(x: torch.Tensor, dim: int, largest: bool = True) -> torch.Tensor:
@@ -196,6 +234,30 @@ def decode_argmax_subpixel_gated(
     coords = torch.where(ok[:, None, None], coords01, jcoords01)
     conf = torch.where(ok[:, None], vals, jvals)
     return coords, conf
+
+
+def decode_soft_argmax(heatmaps: torch.Tensor,
+                       temperature: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable sub-pixel decode: softmax over the spatial grid,
+    expectation of the coordinates. Returns ((B, K, 2) xy in [0,1], (B, K)
+    peak values)."""
+    b, h, w, k = heatmaps.shape
+    flat = heatmaps.reshape(b, h * w, k).float()
+    probs = torch.softmax(flat * temperature, dim=1)
+    dev = heatmaps.device
+    ys = (torch.arange(h, device=dev, dtype=torch.float32) / (h - 1)).repeat_interleave(w)
+    xs = (torch.arange(w, device=dev, dtype=torch.float32) / (w - 1)).repeat(h)
+    ex = torch.einsum("bpk,p->bk", probs, xs)
+    ey = torch.einsum("bpk,p->bk", probs, ys)
+    return torch.stack([ex, ey], dim=-1), flat.amax(1)
+
+
+def extract_peaks(heatmaps: torch.Tensor, threshold: float = 0.3):
+    """Inference-style peak extraction: sub-pixel arg-max decode + validity
+    by confidence threshold (inference_test.py:221-255). Returns
+    (coords01, confidences, valid)."""
+    coords, vals = decode_argmax_subpixel(heatmaps)
+    return coords, vals, vals >= threshold
 
 
 def coords01_to_pixels(coords01: torch.Tensor, image_hw: Tuple[int, int]) -> torch.Tensor:

@@ -1,12 +1,15 @@
-"""Train/eval steps, exact BatchNorm recalibration and early stopping (the
-segmentation half of the JAX package's ``training/loop.py``).
+"""Train/eval steps, exact BatchNorm recalibration and early stopping
+(counterpart of the JAX package's ``training/loop.py``).
 
 - A train step is eager PyTorch: forward (the modules' own bf16 casts),
   loss, backward, optimizer update; the BatchNorm running statistics move
   during the forward. Its per-batch metric stats stay on the device, so the
   host reads nothing back until the trainer logs.
-- An eval step returns the per-batch stats and the exact confusion counts,
-  with optional per-image 0/1 weights for padded rows.
+- A segmentation eval step returns the per-batch stats and the exact
+  confusion counts, with optional per-image 0/1 weights for padded rows.
+- The pose steps train on the MSE of the corner heatmaps; the pose eval
+  step also decodes the predicted and the target heatmaps and returns the
+  per-corner pixel distances.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from mtg_card_image_segmentation_tpu_torch import losses as losses_lib
 from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
-from mtg_card_image_segmentation_tpu_torch.models.layers import ConvBNAct
+from mtg_card_image_segmentation_tpu_torch.models.layers import FlaxBatchNorm2d
 from mtg_card_image_segmentation_tpu_torch.training.state import SegTrainState
 
 
@@ -67,10 +70,84 @@ def make_eval_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
     return eval_step
 
 
+def make_pose_train_step():
+    """``step(state, images, targets) -> (state, stats)``: one update of
+    ``state`` in place on the MSE between the model's (B, hm_h, hm_w, K)
+    heatmaps and ``targets`` (CornerLoss semantics,
+    train-pose-estimation_custom/metrics.py:105-136). ``stats`` holds the
+    loss and a count of 1, on the device.
+
+    The last stage's fusion outputs of the three finer branches feed
+    nothing (the head reads the coarsest), so their convs get no gradient.
+    optax still updates them with a zero gradient (AdamW's weight decay
+    moves them); so does this step, which gives them zero gradients where
+    autograd left none."""
+
+    def train_step(state: SegTrainState, images: torch.Tensor, targets: torch.Tensor):
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=False)
+        loss = losses_lib.heatmap_mse_loss(model(images), targets)
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        state.apply_gradients()
+        stats = {"loss": loss.detach().float(),
+                 "count": torch.ones((), device=loss.device)}
+        return state, stats
+
+    return train_step
+
+
+def pose_grads_float64(model: torch.nn.Module, images: torch.Tensor,
+                       targets: torch.Tensor):
+    """The pose train step's loss and gradients in float64, the reference
+    that the float32 step's gradients are held to: a float64 copy of
+    ``model`` in train mode, its float32 casts (``Tensor.float``) made
+    float64 for the call; ``model`` itself is left as it was. Returns
+    (loss, {parameter name: gradient}), zeros where a parameter feeds
+    nothing, as the step gives them."""
+    import copy
+
+    ref = copy.deepcopy(model).double().train()
+    for m in ref.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    cast = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        loss = losses_lib.heatmap_mse_loss(ref(images.double()), targets.double())
+        loss.backward()
+    finally:
+        torch.Tensor.float = cast
+    return float(loss.detach()), {n: torch.zeros_like(p) if p.grad is None else p.grad
+                                  for n, p in ref.named_parameters()}
+
+
+def make_pose_eval_step(image_hw: tuple[int, int]):
+    """``step(state, images, targets) -> (stats, distances)`` in eval mode:
+    the loss, and the (B, K) pixel distances between the sub-pixel decodes
+    of the predicted and the target heatmaps, scaled by ``image_hw``
+    (CornerMetrics, metrics.py:29-73, with the decode the evaluator and the
+    server use)."""
+    from mtg_card_image_segmentation_tpu_torch.ops import heatmap as hm_lib
+
+    @torch.no_grad()
+    def eval_step(state: SegTrainState, images: torch.Tensor, targets: torch.Tensor):
+        heatmaps = state.model.eval()(images)
+        loss = losses_lib.heatmap_mse_loss(heatmaps, targets)
+        pred_xy, _ = hm_lib.decode_argmax_subpixel(heatmaps)
+        tgt_xy, _ = hm_lib.decode_argmax_subpixel(targets)
+        distances = metrics_lib.corner_distances(pred_xy, tgt_xy, image_hw)
+        return {"loss": loss.float(), "count": torch.ones((), device=loss.device)}, distances
+
+    return eval_step
+
+
 def batch_norms(model: torch.nn.Module) -> List[torch.nn.BatchNorm2d]:
-    """The BatchNorms of ``model``'s ``ConvBNAct`` units (the ones whose
-    train mode follows Flax)."""
-    return [m.bn for m in model.modules() if isinstance(m, ConvBNAct) and m.bn is not None]
+    """The BatchNorms of ``model`` whose train mode follows Flax: those of
+    the ``ConvBNAct`` units and the HRNet head's ``deconv_bn0/1``."""
+    return [m for m in model.modules() if isinstance(m, FlaxBatchNorm2d)]
 
 
 @contextmanager

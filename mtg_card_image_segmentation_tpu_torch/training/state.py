@@ -25,14 +25,21 @@ class SegTrainState:
     """``model`` (float32 parameters on the training device), ``optimizer``
     (built by ``opt_def`` over the model's parameters) and ``step``, the
     number of updates applied so far: a host integer, so reading it never
-    waits for the device."""
+    waits for the device.
+
+    ``hyperparams`` (None, or e.g. ``{"learning_rate": 1e-3}``) are the
+    optimizer's host-set hyperparameters, optax's ``inject_hyperparams``
+    state: they are saved and restored with the optimizer state, as
+    ``opt_state/hyperparams/<name>`` in float32."""
 
     def __init__(self, model: torch.nn.Module, opt_def: OptimizerDef,
-                 optimizer: Optional[torch.optim.Optimizer] = None, step: int = 0) -> None:
+                 optimizer: Optional[torch.optim.Optimizer] = None, step: int = 0,
+                 hyperparams: Optional[Dict[str, float]] = None) -> None:
         self.model = model
         self.opt_def = opt_def
         self.optimizer = optimizer or opt_def.build(model.parameters())
         self.step = step
+        self.hyperparams = hyperparams
 
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients in ``.grad``."""
@@ -62,11 +69,22 @@ class SegTrainState:
                 sd[n] = torch.zeros_like(p) if v is None else v
             out[key] = state_dict_to_flax(sd)[0]
         out["count"] = np.asarray(self.step, np.int64)
+        if self.hyperparams is not None:
+            out["hyperparams"] = {k: np.asarray(v, np.float32)
+                                  for k, v in self.hyperparams.items()}
         return out
 
     def load_opt_state(self, tree: Dict[str, Any]) -> None:
-        """Inverse of :meth:`opt_state`; sets ``step`` from ``count``."""
+        """Inverse of :meth:`opt_state`; sets ``step`` from ``count`` and
+        the hyperparameters from ``hyperparams`` where the tree holds them
+        (in place, so that a schedule reading the dict sees them)."""
         self.step = int(tree["count"])
+        if "hyperparams" in tree:
+            restored = {k: float(v) for k, v in tree["hyperparams"].items()}
+            if self.hyperparams is None:
+                self.hyperparams = restored
+            else:
+                self.hyperparams.update(restored)
         named = dict(self.model.named_parameters())
         for slot, key in _SLOTS[self.opt_def.name]:
             sd = flax_to_state_dict(tree[key])

@@ -89,9 +89,10 @@ def flax_to_state_dict(params: Dict[str, Any],
 
 def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Inverse of :func:`flax_to_state_dict`: (params, batch_stats) numpy
-    trees in the Flax layout. Every leaf is a copy: a float32 CPU tensor's
-    ``.numpy()`` shares its memory, and a snapshot taken before an in-place
-    update must not move with it (the JAX package's trees are immutable)."""
+    trees in the Flax layout, float32 (float64 tensors stay float64). Every
+    leaf is a copy: a float32 CPU tensor's ``.numpy()`` shares its memory,
+    and a snapshot taken before an in-place update must not move with it
+    (the JAX package's trees are immutable)."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     inv_stats = {v: k for k, v in _STATS.items()}
@@ -99,7 +100,8 @@ def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dic
         *path, leaf = name.split(".")
         if leaf == "num_batches_tracked":
             continue
-        a = t.detach().float().cpu().numpy()
+        a = t.detach()
+        a = (a if a.dtype == torch.float64 else a.float()).cpu().numpy()
         if leaf in inv_stats:
             tree, key = stats, inv_stats[leaf]
         elif leaf == "weight" and a.ndim == 4 and _is_deconv(path[-1]):

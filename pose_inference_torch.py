@@ -1,0 +1,208 @@
+#!/usr/bin/env python
+"""Corner-detection inference CLI of the PyTorch port (counterpart of
+``pose_inference.py``; reference: train-pose-estimation_custom/
+inference_test.py — dual backend .pth/.onnx with a session fallback ladder
+:64-139, preprocess, peak extraction with a threshold, scale to the
+original frame, visualization, timing). Runs on the CUDA card;
+``--device cpu`` runs on the host.
+
+  python pose_inference_torch.py --checkpoint ckpts/best_model --image card.jpg
+  python pose_inference_torch.py --checkpoint ckpts/best_model --synthetic 4
+  python pose_inference_torch.py --onnx runs/pose/exported --synthetic 2
+  python pose_inference_torch.py --checkpoint runs/yolo/checkpoints/best_model \\
+      --family yolo --synthetic 4
+
+--family hrnet (the default) runs an HRNet checkpoint or, with --onnx, a
+shipped HRNet artifact through the port's torch ONNX executor; a package
+DIRECTORY walks the int8 -> fp16 -> fp32 -> dynamic ladder, and every rung
+that falls is printed with its reason. --family yolo runs a YOLO12n-pose
+checkpoint through ``YoloCornerPredictor``. Not ported yet: --family yolo
+--onnx, which needs the YOLO export and its client decode (ROADMAP Queue A
+item 6), and the JAX CLI's --stablehlo, which waits for the port's
+torch.export artifact (Queue A item 8).
+
+--synthetic N renders N scenes from seeds 123 + i with the port's renderer
+on the host (a torch.Generator): the same images on every device, but not
+the JAX CLI's images, which come from JAX keys.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import List, Optional
+
+SYNTHETIC_SEED = 123
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--checkpoint", default=None)
+    parser.add_argument("--onnx", default=None, metavar="PATH",
+                        help="run a shipped .onnx artifact (or walk a package "
+                             "directory's int8->fp16->fp32->dynamic ladder) instead of "
+                             "a checkpoint; --family hrnet only")
+    parser.add_argument("--image", type=str, default=None, help="image file to run on")
+    parser.add_argument("--synthetic", type=int, default=0, help="run on N synthetic samples")
+    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--set", nargs="*", default=[], metavar="a.b=v")
+    parser.add_argument("--threshold", type=float, default=0.3)
+    parser.add_argument("--family", choices=["hrnet", "yolo"], default="hrnet",
+                        help="corner model family the checkpoint holds")
+    parser.add_argument("--imgsz", type=int, default=640,
+                        help="square YOLO input size (--family yolo)")
+    parser.add_argument("--output-dir", default="pose_inference_out")
+    parser.add_argument("--visualize", action="store_true")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    if (args.checkpoint is None) == (args.onnx is None):
+        parser.error("give exactly one of --checkpoint / --onnx")
+    if args.family == "yolo" and args.onnx:
+        parser.error("--family yolo --onnx needs the YOLO ONNX export and its client "
+                     "decode, not ported yet (ROADMAP Queue A item 6); use --checkpoint")
+    if args.family == "yolo" and (args.config or args.set):
+        parser.error("--family yolo is configured by --imgsz/--threshold only; "
+                     "--config/--set apply to the hrnet family")
+    if not args.image and args.synthetic <= 0:
+        parser.error("give --image or --synthetic N")
+
+    import numpy as np
+    import torch
+
+    from mtg_card_image_segmentation_tpu_torch.config import Config, pose_default_config
+    from mtg_card_image_segmentation_tpu_torch.ops import heatmap as hm_lib
+    from mtg_card_image_segmentation_tpu_torch.ops.resize import bilinear_resize
+    from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
+
+    device = resolve_device(args.device)
+    print(f"device {device}"
+          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    cfg = Config.from_json(args.config) if args.config else pose_default_config()
+    if args.set:
+        cfg = cfg.with_cli(args.set)
+
+    def resized(images01: np.ndarray, h: int, w: int) -> torch.Tensor:
+        x = torch.from_numpy(np.ascontiguousarray(images01, np.float32)).to(device)
+        return bilinear_resize(x, h, w)
+
+    reasons: List[str] = []
+    if args.family == "yolo":
+        from mtg_card_image_segmentation_tpu_torch.serving.pose_predictor import (
+            YoloCornerPredictor,
+        )
+
+        h = w = args.imgsz
+        ckpt_dir, name = os.path.split(os.path.normpath(args.checkpoint))
+        predictor = YoloCornerPredictor.from_checkpoint(
+            ckpt_dir or ".", name, imgsz=args.imgsz, threshold=args.threshold, device=device)
+        source = args.checkpoint
+        print(f"loaded {args.checkpoint} (yolo12n_pose, imgsz={args.imgsz})")
+
+        def infer(images01):
+            # stretch-resize to the square YOLO input (ultralytics imgsz
+            # semantics), requantize for the predictor's uint8 contract, map
+            # back to the original frame with the YOLO half-pixel
+            # convention, then to coords01 by (size-1)
+            h0, w0 = images01.shape[1:3]
+            u8 = (resized(images01, h, w) * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
+            px, conf = predictor.predict(u8)
+            px0 = predictor.scale_to_original(px, (h0, w0))
+            return px0 / torch.tensor([w0 - 1.0, h0 - 1.0], device=px0.device), conf
+
+    else:
+        h, w = cfg.pose.input_height, cfg.pose.input_width
+        if args.onnx:
+            from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
+
+            runner, source, reasons = artifact_backend.load_onnx(args.onnx, "hrnet", device)
+            print(f"loaded artifact {source} (hrnet)")
+            print(f"ladder fell past: {json.dumps(reasons)}")
+
+            def heatmaps_of(x):
+                out = runner(x.permute(0, 3, 1, 2).cpu().numpy())  # (B, K, hm_h, hm_w)
+                return torch.from_numpy(np.ascontiguousarray(out.transpose(0, 2, 3, 1)))
+
+        else:
+            from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
+            from mtg_card_image_segmentation_tpu_torch.utils.params import hrnet_from_flax
+
+            ckpt_dir, name = os.path.split(os.path.normpath(args.checkpoint))
+            params, batch_stats, meta = ckpt_lib.load_params(ckpt_dir or ".", name)
+            model = hrnet_from_flax(params, batch_stats,
+                                    (cfg.pose.heatmap_height, cfg.pose.heatmap_width),
+                                    dtype=getattr(torch, cfg.pose.compute_dtype)).to(device)
+            source = args.checkpoint
+            print(f"loaded {args.checkpoint} (epoch {meta.get('epoch')})")
+
+            def heatmaps_of(x):
+                return model(x)
+
+        @torch.inference_mode()
+        def infer(images01):
+            """Resize to the model input, [0,1] as it is (no ImageNet
+            normalization, inference_test.py:167-169), heatmaps, the gated
+            sub-pixel decode the evaluator and the server use."""
+            return hm_lib.decode_argmax_subpixel_gated(heatmaps_of(resized(images01, h, w)))
+
+    samples = []  # (name, (H0, W0, 3) float32 [0,1] numpy)
+    if args.image:
+        import cv2
+
+        raw = cv2.cvtColor(cv2.imread(args.image), cv2.COLOR_BGR2RGB)
+        samples.append((os.path.basename(args.image), raw.astype(np.float32) / 255.0))
+    for i in range(args.synthetic):
+        from mtg_card_image_segmentation_tpu_torch.data.synthetic import synthetic_sample
+
+        s = synthetic_sample(torch.Generator().manual_seed(SYNTHETIC_SEED + i), h, w, 0.0)
+        samples.append((f"synthetic_{i}", s.image.numpy()))
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    results = []
+    for sample_name, img in samples:
+        t0 = time.perf_counter()
+        coords01, conf = infer(img[None])
+        coords01 = coords01[0].float().cpu().numpy()  # the copy fences the computation
+        conf = conf[0].float().cpu().numpy()
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        h0, w0 = img.shape[:2]
+        px = coords01 * np.array([w0 - 1, h0 - 1])  # scale to the original size
+        valid = conf >= args.threshold
+        res = {
+            "sample": sample_name,
+            "corners_xy": px.round(2).tolist(),
+            "confidences": conf.round(3).tolist(),
+            "valid": valid.tolist(),
+            "inference_ms": round(dt_ms, 2),
+        }
+        results.append(res)
+        print(json.dumps(res))
+
+        if args.visualize:
+            from mtg_card_image_segmentation_tpu_torch.utils.plots import _plt
+
+            plt = _plt()
+            fig, ax = plt.subplots(figsize=(6, 5))
+            ax.imshow(img)
+            colors = ["red", "lime", "blue", "yellow"]
+            for k in range(4):
+                ax.scatter(*px[k], c=colors[k], s=80, marker="o" if valid[k] else "x")
+                ax.annotate(f"{conf[k]:.2f}", px[k], color=colors[k], fontsize=8)
+            if valid.sum() >= 3:
+                poly = np.vstack([px[valid], px[valid][:1]])
+                ax.plot(poly[:, 0], poly[:, 1], "c--", alpha=0.7)
+            ax.axis("off")
+            out = os.path.join(args.output_dir, f"{sample_name}_corners.png")
+            fig.savefig(out, dpi=120, bbox_inches="tight")
+            plt.close(fig)
+            print(f"  visualization -> {out}")
+
+    with open(os.path.join(args.output_dir, "results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    return {"source": source, "ladder_fell_past": reasons, "results": results}
+
+
+if __name__ == "__main__":
+    main()

@@ -336,11 +336,15 @@ _ALL_PASS = dict.fromkeys(("fp32", "fp16", "int8", "dynamic b1", "dynamic b4"), 
     (("dynamic b4",), 1, ("fp16", "int8"), ["gate dynamic b4 FAIL"]),
     ((), 1, ("fp16", "int8"), ["exit 1 with verdicts"]),
     (("missing dynamic b1",), 0, (), ["gate dynamic b1 not reported"]),
+    # the slim export when the referee excused fp32 and dynamic b4
+    (("fp32", "dynamic b4"), 1, ("fp32", "dynamic b4"), []),
 ])
 def test_chip_smoke_export_gate_rules(failed, exit_code, may_miss, faults):
     """chip_smoke's rule for an export CLI run: every gate reported, no
     missed gate outside ``may_miss`` (none for the slim export, fp16 and
-    int8 for the dense one), and exit 1 exactly when a gate missed."""
+    int8 for the dense one, and for either the absolute float32 gates that
+    the CPU referee excused, test_chip_smoke_export_referee), and exit 1
+    exactly when a gate missed."""
     verdicts = dict(_ALL_PASS)
     for k in failed:
         if k.startswith("missing "):
@@ -350,6 +354,51 @@ def test_chip_smoke_export_gate_rules(failed, exit_code, may_miss, faults):
     got = _chip_smoke().export_gate_faults({"exit": exit_code}, verdicts, frozenset(may_miss))
     assert len(got) == len(faults)
     assert all(g.startswith(f) for g, f in zip(got, faults))
+
+
+@pytest.mark.parametrize("card,cpu,excused", [
+    # a checkpoint whose float32 rounding reaches the 1e-4 gate on both
+    ({"fp32": 1.14e-4}, {"fp32": 1.22e-4}, {"fp32"}),
+    ({"dynamic b4": 1.14e-4}, {"dynamic b4": 0.8e-4}, {"dynamic b4"}),
+    ({"fp32": 1.1e-4, "dynamic b1": 1.2e-4}, {"fp32": 0.9e-4, "dynamic b1": 0.7e-4},
+     {"fp32", "dynamic b1"}),
+    # a card that misses by far more than the CPU's rounding
+    ({"fp32": 1e-2}, {"fp32": 1.01e-4}, set()),
+    ({"dynamic b1": 2.5e-4}, {"dynamic b1": 1.2e-4}, set()),
+    ({"fp32": 1.1e-4, "dynamic b4": 3e-4}, {"fp32": 1e-4, "dynamic b4": 1e-4}, {"fp32"}),
+    # no CPU reading, no excuse
+    ({"fp32": 1.1e-4}, {}, set()),
+])
+def test_chip_smoke_export_referee(card, cpu, excused):
+    """chip_smoke's CPU referee for the absolute float32 export gates (fp32,
+    dynamic b1 and b4, max|diff| < 1e-4): a gate the card missed is excused
+    only where the card's max|diff| is at most twice the CPU's on the same
+    checkpoint and probe, read from the CLIs' log lines; fp16 and int8 are
+    never excused by it, and a card that misses by far more than the CPU
+    fails the export."""
+    smoke = _chip_smoke()
+
+    def log(readings, fp16="PASS"):
+        lines = [f"fp16 parity: logits max|diff|=5.00e-02 prob max|diff|=2.00e-02 "
+                 f"mask agreement=0.999000 {fp16}",
+                 "int8 parity: prob max|diff|=1.00e-01 mask agreement=0.999500 (>= 0.999) PASS"]
+        for g in ("fp32", "dynamic b1", "dynamic b4"):
+            d = readings.get(g, 3e-5)
+            v = "PASS" if d < 1e-4 else "FAIL"
+            lines.append(f"fp32 parity: max|diff|={d:.2e} (< 0.0001) {v}" if g == "fp32" else
+                         f"dynamic-batch parity {g[-2:]}: max|diff|={d:.2e} {v}")
+        return "\n".join(lines)
+
+    card_log = log(card, fp16="FAIL")
+    verdicts = smoke.export_gate_verdicts(card_log)
+    readings = smoke.export_gate_readings(card_log)
+    assert set(readings) == {"fp32", "dynamic b1", "dynamic b4"}
+    cpu_readings = {k: v for k, v in smoke.export_gate_readings(log(cpu)).items() if k in cpu}
+    got = smoke.export_gate_refereed(verdicts, readings, cpu_readings)
+    assert got == excused and "fp16" not in got
+    faults = smoke.export_gate_faults({"exit": 1}, verdicts, got)
+    assert sorted(faults) == sorted([f"gate {g} FAIL" for g in set(card) - excused]
+                                    + ["gate fp16 FAIL"])
 
 
 def _probs(z):

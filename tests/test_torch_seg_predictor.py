@@ -199,7 +199,9 @@ _JAX_IMPORT = re.compile(
 )
 
 
-CLIS = ("train_seg_torch", "evaluate_seg_torch", "prune_seg_torch", "export_seg_torch")
+CLIS = ("train_seg_torch", "evaluate_seg_torch", "prune_seg_torch", "export_seg_torch",
+        "seg_inference_torch", "pose_inference_torch", "train_pose_torch",
+        "evaluate_pose_torch", "export_pose_torch")
 TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch")
 
 
@@ -222,7 +224,9 @@ def test_port_sources_import_no_jax():
             "data/pipeline.py", "data/__init__.py", "export/onnx_proto.py",
             "export/onnx_optimize.py", "export/onnx_export.py", "export/onnx_torch_runner.py",
             "evaluation/__init__.py", "evaluation/segmentation.py", "evaluation/worstk.py",
-            "utils/plots.py", "compression/prune.py", "compression/__init__.py"} <= names
+            "utils/plots.py", "compression/prune.py", "compression/__init__.py",
+            "evaluation/pose.py", "training/pose_trainer.py",
+            "serving/artifact_backend.py"} <= names
     for f in files:
         text = f.read_text()
         assert not _JAX_IMPORT.search(text), f
@@ -236,7 +240,7 @@ def test_port_sources_import_no_jax():
 def test_port_imports_with_jax_blocked():
     """Every port module, chip_smoke.py, the card's two tools
     (tools/stencil_floor_torch.py, tools/fp32_conv_accuracy_torch.py) and
-    the port's four CLIs import in a process where importing jax, flax,
+    the port's nine CLIs import in a process where importing jax, flax,
     orbax, optax or the JAX package fails."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
