@@ -236,6 +236,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     return info
 
 
+def gate_probes(h: int, w: int) -> dict:
+    """The float32 gates' NCHW inputs, in the order export_seg.py draws
+    them from ``numpy.random.default_rng(0)``: ``fp32`` (b1), then
+    ``dynamic b1`` and ``dynamic b4``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return {g: rng.standard_normal((nb, 3, h, w)).astype(np.float32)
+            for g, nb in (("fp32", 1), ("dynamic b1", 1), ("dynamic b4", 4))}
+
+
 def _gates(cfg, model, device, onnx_model, fp16_model, fp32_path, fp16_path,
            int8_path, dyn_path) -> dict:
     """The parity gates, each ONNX file run by the torch executor on
@@ -260,10 +271,9 @@ def _gates(cfg, model, device, onnx_model, fp16_model, fp32_path, fp16_path,
         m = op.Model.load(path_or_model) if isinstance(path_or_model, str) else path_or_model
         return make_runner(m, device)({"input": x})["output"]
 
-    rng = np.random.default_rng(0)
-    x_nchw = rng.standard_normal((1, 3, h, w)).astype(np.float32)
-    probes = {nb: rng.standard_normal((nb, 3, h, w)).astype(np.float32)
-              for nb in ((1, 4) if dyn_path else ())}
+    drawn = gate_probes(h, w)
+    x_nchw = drawn["fp32"]
+    probes = {nb: drawn[f"dynamic b{nb}"] for nb in ((1, 4) if dyn_path else ())}
     # the float32 graphs and the source model run with the host's fp32
     # accuracy (no TF32, no cuDNN), as export_seg.py forces float32
     # precision around its gates; the fp16 graph runs on cuDNN in float16,

@@ -15,12 +15,11 @@ demo/README.md:46-48).
 The HRNet pose graph (``export_pose_model``) adds ConvTranspose and
 nearest Resize (asymmetric coordinates, floor) to that op set.
 
-The segmentation and pose halves of the JAX package's
-``export/onnx_export.py``, copied: the graph builder's layer helpers,
-``export_seg_model``, ``export_pose_model``, ``convert_to_fp16`` and
-``auto_mixed_precision``. Given the same folded numpy tree it writes the
-same bytes as the JAX writer. The YOLO graph (and the builder's tensor ops
-only it uses) is not ported yet.
+The JAX package's ``export/onnx_export.py``, copied: the graph builder
+(its layer helpers, and the tensor ops the YOLO graph of
+``export/onnx_yolo.py`` uses), ``export_seg_model``, ``export_pose_model``,
+``convert_to_fp16`` and ``auto_mixed_precision``. Given the same folded
+numpy tree it writes the same bytes as the JAX writer.
 """
 
 from __future__ import annotations
@@ -168,6 +167,42 @@ class GraphBuilder:
 
     def global_avg_pool(self, x: str, hint: str = "gap") -> str:
         return self.node("GlobalAveragePool", [x], hint)
+
+    # -- tensor ops (YOLO graph: attention / split / decode) ---------------
+
+    def silu(self, x: str, hint: str = "silu") -> str:
+        return self.node("Mul", [x, self.node("Sigmoid", [x], hint + "_sig")], hint)
+
+    def reshape(self, x: str, shape, hint: str) -> str:
+        shp = self.init_tensor(
+            self.fresh(hint + "_shape"), np.asarray(shape, np.int64)
+        )
+        return self.node("Reshape", [x, shp], hint)
+
+    def transpose(self, x: str, perm, hint: str) -> str:
+        return self.node("Transpose", [x], hint, perm=[int(p) for p in perm])
+
+    def matmul(self, a: str, b: str, hint: str) -> str:
+        return self.node("MatMul", [a, b], hint)
+
+    def slice(self, x: str, starts, ends, axes, hint: str) -> str:
+        def mk(suffix, v):
+            return self.init_tensor(self.fresh(hint + suffix), np.asarray(v, np.int64))
+
+        return self.node(
+            "Slice",
+            [x, mk("_starts", starts), mk("_ends", ends), mk("_axes", axes)],
+            hint,
+        )
+
+    def concat(self, xs: List[str], axis: int, hint: str) -> str:
+        return self.node("Concat", xs, hint, axis=int(axis))
+
+    def softmax(self, x: str, axis: int, hint: str) -> str:
+        return self.node("Softmax", [x], hint, axis=int(axis))
+
+    def const(self, array: np.ndarray, hint: str) -> str:
+        return self.init_tensor(self.fresh(hint), np.asarray(array))
 
 
 def _np(tree, *path):

@@ -12,8 +12,8 @@ gate is evidence that the .onnx file means what ONNX says it means.
 the CPU must be asked for with ``device="cpu"``. Initializers move to the
 device once, in :func:`make_runner`; each call moves its feeds there and
 returns numpy. Nodes run eagerly, one after another. The op set is that
-of the segmentation and HRNet pose graphs (ConvTranspose, nearest Resize);
-the YOLO graph's ops come with its exporter.
+of the segmentation, HRNet pose (ConvTranspose, nearest Resize) and YOLO
+graphs (Concat, MatMul, Reshape, Slice, Softmax, Sub, Transpose).
 
 Two differences from the JAX package's copy, which runs fp32 torch on the
 host:
@@ -33,7 +33,7 @@ host:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,14 +47,20 @@ _CAST = {op.FLOAT: torch.float32, op.FLOAT16: torch.float16,
          op.INT64: torch.int64, op.INT32: torch.int32}
 
 
-def make_runner(model: op.Model, device=None) -> Callable[[Dict[str, np.ndarray]],
-                                                          Dict[str, np.ndarray]]:
+def make_runner(model: op.Model, device=None,
+                dtype: Optional[torch.dtype] = None) -> Callable[[Dict[str, np.ndarray]],
+                                                                 Dict[str, np.ndarray]]:
     """``run(feeds) -> {output name: numpy array}`` for ``model``, with its
-    initializers moved to ``device`` once."""
+    initializers moved to ``device`` once. ``dtype=torch.float64`` runs a
+    float32 graph in float64: its float32 initializers and feeds are
+    widened, so the run computes the function that the file's weights
+    define, with float64 rounding (a graph with a Cast refuses)."""
     dev = resolve_device(device)
+    if dtype is not None and any(n.op_type == "Cast" for n in model.nodes):
+        raise NotImplementedError("a graph with Cast nodes runs in its own types")
     # the Resize size operands are read on the host
     host = {t.name: t.array for t in model.initializers}
-    weights = {name: torch.from_numpy(np.ascontiguousarray(a).copy()).to(dev)
+    weights = {name: _widen(torch.from_numpy(np.ascontiguousarray(a).copy()), dtype).to(dev)
                for name, a in host.items()}
     out_names = [name for name, _, _ in model.outputs]
 
@@ -62,12 +68,16 @@ def make_runner(model: op.Model, device=None) -> Callable[[Dict[str, np.ndarray]
     def run(feeds: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         env: Dict[str, torch.Tensor] = dict(weights)
         for name, value in feeds.items():
-            env[name] = torch.from_numpy(np.ascontiguousarray(value)).to(dev)
+            env[name] = _widen(torch.from_numpy(np.ascontiguousarray(value)), dtype).to(dev)
         for node in model.nodes:
             env[node.outputs[0]] = _run_node(node, env, host)
         return {name: env[name].cpu().numpy() for name in out_names}
 
     return run
+
+
+def _widen(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return t.to(dtype) if dtype is not None and t.dtype == torch.float32 else t
 
 
 def run_model(model: op.Model, feeds: Dict[str, np.ndarray],
@@ -112,13 +122,37 @@ def _run_node(node: op.Node, env: Dict[str, torch.Tensor],
     if t == "HardSigmoid":
         alpha = a.get("alpha", 0.2)
         beta = a.get("beta", 0.5)
-        if abs(alpha - 1.0 / 6.0) < 1e-6 and abs(beta - 0.5) < 1e-6:
+        if (ins[0].dtype != torch.float64
+                and abs(alpha - 1.0 / 6.0) < 1e-6 and abs(beta - 0.5) < 1e-6):
             return F.hardsigmoid(ins[0])  # torch's own kernel
+        # the ONNX definition with the file's alpha and beta (in float64:
+        # torch's CUDA kernel takes 1/6 as a float32 constant even there)
         return torch.clamp(ins[0] * alpha + beta, 0.0, 1.0)
     if t == "Mul":
         return ins[0] * ins[1]
     if t == "Add":
         return ins[0] + ins[1]
+    if t == "Sub":
+        return ins[0] - ins[1]
+    if t == "MatMul":
+        return torch.matmul(ins[0], ins[1])
+    if t == "Softmax":
+        return torch.softmax(ins[0], dim=int(a.get("axis", -1)))
+    if t == "Concat":
+        return torch.cat(ins, dim=int(a.get("axis", 1)))
+    if t == "Transpose":
+        return ins[0].permute(*(int(p) for p in a["perm"]))
+    if t == "Reshape":
+        # the shape operand is read on the host; no 0 (copy) entries are
+        # emitted, -1 is inferred as ONNX infers it
+        return ins[0].reshape(tuple(int(d) for d in host[node.inputs[1]]))
+    if t == "Slice":
+        x = ins[0]
+        idx = [slice(None)] * x.dim()
+        for s, e, ax in zip(*(host[name] for name in node.inputs[1:4])):
+            dim = x.shape[int(ax)]
+            idx[int(ax)] = slice(int(np.clip(s, -dim, dim)), int(np.clip(e, -dim, dim)))
+        return x[tuple(idx)]
     if t == "GlobalAveragePool":
         return F.adaptive_avg_pool2d(ins[0], 1)
     if t == "Resize":

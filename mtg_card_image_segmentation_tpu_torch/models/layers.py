@@ -52,9 +52,15 @@ def hard_swish(x: torch.Tensor) -> torch.Tensor:
     return x * hard_sigmoid(x)
 
 
-# hardswish as torch's one fused op: x * min(max(x + 3, 0), 6) / 6, the
-# arithmetic of the TPU kernel's _act and of the CUDA kernels
-ACTIVATIONS = {"relu": torch.relu, "hardswish": F.hardswish, "silu": F.silu}
+def _hardswish(x: torch.Tensor) -> torch.Tensor:
+    """hardswish as torch's one fused op: x * min(max(x + 3, 0), 6) / 6,
+    the arithmetic of the TPU kernel's _act and of the CUDA kernels. In
+    float64 it is computed from its definition: torch's CUDA kernel takes
+    1/6 as a float32 constant even there (3e-8 off the CPU's result)."""
+    return hard_swish(x) if x.dtype == torch.float64 else F.hardswish(x)
+
+
+ACTIVATIONS = {"relu": torch.relu, "hardswish": _hardswish, "silu": F.silu}
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -155,7 +161,9 @@ class SqueezeExcite(nn.Module):
         self.fc2 = nn.Conv2d(squeeze_features, channels, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(1, 2), dtype=torch.float32).to(self.dtype)  # (B, C)
+        # pooled in float32 (float64 in a float64 pass)
+        s = x.mean(dim=(1, 2), dtype=torch.promote_types(x.dtype, torch.float32))
+        s = s.to(self.dtype)  # (B, C)
         s = F.linear(s, self.fc1.weight.to(self.dtype).flatten(1),
                      self.fc1.bias.to(self.dtype))
         s = torch.relu(s)

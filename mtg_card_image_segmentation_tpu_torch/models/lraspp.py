@@ -46,7 +46,8 @@ class LRASPPHead(nn.Module):
 
     def forward(self, low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
         x = self.cbr(high)
-        s = high.mean(dim=(1, 2), dtype=torch.float32)  # (B, C) pooled in fp32
+        # (B, C) pooled in fp32 (float64 in a float64 pass)
+        s = high.mean(dim=(1, 2), dtype=torch.promote_types(high.dtype, torch.float32))
         s = torch.sigmoid(conv1x1(s, self.scale, self.dtype).float())
         x = x.float() * s[:, None, None, :]
         x = bilinear_resize(x, low.shape[1], low.shape[2])

@@ -7,18 +7,27 @@ anchor-free Detect + Pose head with DFL box regression and (K, 3) keypoint
 regression per anchor. ``decode_predictions`` and ``top1_detection`` turn
 the three levels' raw outputs into one card's box and four corners.
 
-Numerics follow the reference: convs in ``dtype``, BatchNorm (eps 1e-3, the
-running statistics: the port runs the model in ``eval()`` only) and the SiLU
-after it in float32, residual sums in
+Numerics follow the reference: convs in ``dtype``, BatchNorm (eps 1e-3,
+Flax momentum 0.97; train mode moves the running statistics as Flax does,
+eval mode reads them) and the SiLU after it in float32, residual sums in
 float32 and cast once, the attention softmax in float32, the level outputs
-and the whole decode in float32. Area attention is plain softmax attention
+and the whole decode in float32 (or float64, where the level outputs'
+``.float()`` gives float64, as in the float64 gradient pass of
+``training.loop.grads_float64``). Area attention is plain softmax attention
 over spatial tokens split into ``area`` groups, in stock matrix products,
 as the reference leaves it to its compiler.
+
+``fold_bn=True`` is the inference layout of ``export/fold_bn.py``'s folded
+tree: no BatchNorm, every conv carries the folded bias (the model the
+export gates hold the ONNX graph to). The head's last 1x1 convs carry the
+reference's 1 % priors in ``bias_prior`` (every class logit and each
+keypoint's confidence at -4.595), which ``utils.params.init_flax_defaults``
+gives a model trained from scratch.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,6 +45,11 @@ from mtg_card_image_segmentation_tpu_torch.ops.resize import nearest_resize
 WIDTH = 0.25
 DEPTH = 0.5
 REG_MAX = 16
+# Flax's convention (torch's 0.03): the reference's nn.BatchNorm(momentum=0.97)
+BN_MOMENTUM = 0.97
+# the head's 1 % prior (ultralytics bias_init) on the class logits and the
+# keypoint confidences: keeps the dense BCE and focal terms sane from step 0
+PRIOR_LOGIT = -4.595
 
 STRIDES = (8, 16, 32)
 # predicted keypoint offsets are in units of KPT_OFFSET_SCALE pixels at
@@ -67,33 +81,38 @@ class ConvBNSiLU(ConvBNAct):
 
     def __init__(self, in_features: int, features: int, kernel: int = 1,
                  stride: int = 1, groups: int = 1, act: bool = True,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 fold_bn: bool = False, dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__(in_features, features, kernel, stride=stride, groups=groups,
-                         act="silu" if act else None, dtype=dtype)
+                         act="silu" if act else None, fold_bn=fold_bn,
+                         bn_momentum=BN_MOMENTUM, dtype=dtype)
 
 
 class Conv1x1(nn.Conv2d):
     """A plain 1x1 conv with a bias (the head's last layers), NHWC in and
-    out, computed in ``dtype`` with the bias added after the conv."""
+    out, computed in ``dtype`` with the bias added after the conv.
+    ``bias_prior`` (None: zeros) is the bias a model trained from scratch
+    starts from."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 dtype: torch.dtype = torch.bfloat16,
+                 bias_prior: Optional[torch.Tensor] = None) -> None:
         super().__init__(in_features, features, 1, bias=True)
-        self.compute_dtype = dtype
+        self.dtype = dtype
+        self.bias_prior = bias_prior
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
+        dt = self.dtype
         y = F.conv2d(nchw(x.to(dt)), self.weight.to(dt))
         return nhwc(y + self.bias.to(dt)[:, None, None])
 
 
 class Bottleneck(nn.Module):
     def __init__(self, in_features: int, features: int, shortcut: bool = True,
-                 e: float = 0.5, k1: int = 3, k2: int = 3,
+                 e: float = 0.5, k1: int = 3, k2: int = 3, fold_bn: bool = False,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         hidden = int(features * e)
-        kw = dict(dtype=dtype)
+        kw = dict(fold_bn=fold_bn, dtype=dtype)
         self.dtype = dtype
         self.cv1 = ConvBNSiLU(in_features, hidden, k1, **kw)
         self.cv2 = ConvBNSiLU(hidden, features, k2, **kw)
@@ -108,10 +127,10 @@ class Bottleneck(nn.Module):
 
 class C3k(nn.Module):
     def __init__(self, in_features: int, features: int, n: int = 2, shortcut: bool = True,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 fold_bn: bool = False, dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         c_ = features // 2
-        kw = dict(dtype=dtype)
+        kw = dict(fold_bn=fold_bn, dtype=dtype)
         self.n = n
         self.cv1 = ConvBNSiLU(in_features, c_, 1, **kw)
         self.cv2 = ConvBNSiLU(in_features, c_, 1, **kw)
@@ -130,11 +149,11 @@ class C3k2(nn.Module):
     """C2f-style split block (ultralytics C3k2)."""
 
     def __init__(self, in_features: int, features: int, n: int = 1, c3k: bool = False,
-                 e: float = 0.5, shortcut: bool = True,
+                 e: float = 0.5, shortcut: bool = True, fold_bn: bool = False,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         c = int(features * e)
-        kw = dict(dtype=dtype)
+        kw = dict(fold_bn=fold_bn, dtype=dtype)
         self.c, self.n = c, n
         self.cv1 = ConvBNSiLU(in_features, 2 * c, 1, **kw)
         for i in range(n):
@@ -154,10 +173,10 @@ class AAttn(nn.Module):
     """Area attention (ultralytics AAttn): softmax attention over spatial
     tokens within ``area`` horizontal strips + depthwise positional conv."""
 
-    def __init__(self, dim: int, num_heads: int, area: int = 1,
+    def __init__(self, dim: int, num_heads: int, area: int = 1, fold_bn: bool = False,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
-        kw = dict(dtype=dtype)
+        kw = dict(fold_bn=fold_bn, dtype=dtype)
         self.dim, self.num_heads, self.area, self.dtype = dim, num_heads, area, dtype
         self.qkv = ConvBNSiLU(dim, dim * 3, 1, act=False, **kw)
         self.pe = ConvBNSiLU(dim, dim, 7, groups=dim, act=False, **kw)
@@ -180,9 +199,9 @@ class AAttn(nn.Module):
 
 class ABlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2, area: int = 1,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 fold_bn: bool = False, dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
-        kw = dict(dtype=dtype)
+        kw = dict(fold_bn=fold_bn, dtype=dtype)
         self.dtype = dtype
         self.attn = AAttn(dim, num_heads, area, **kw)
         hidden = int(dim * mlp_ratio)
@@ -198,10 +217,10 @@ class ABlock(nn.Module):
 class A2C2f(nn.Module):
     def __init__(self, in_features: int, features: int, n: int = 1, a2: bool = True,
                  area: int = 1, mlp_ratio: float = 2.0, e: float = 0.5,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 fold_bn: bool = False, dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         c_ = int(features * e)
-        kw = dict(dtype=dtype)
+        kw = dict(fold_bn=fold_bn, dtype=dtype)
         self.n, self.a2 = n, a2
         self.cv1 = ConvBNSiLU(in_features, c_, 1, **kw)
         for i in range(n):
@@ -231,9 +250,9 @@ class YOLO12PoseBackboneHead(nn.Module):
     float32 (B, h, w, 4*REG_MAX + classes + keypoints*kpt_dim)."""
 
     def __init__(self, num_classes: int = 1, num_keypoints: int = 4, kpt_dim: int = 3,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 fold_bn: bool = False, dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
-        kw = dict(dtype=dtype)
+        kw = dict(fold_bn=fold_bn, dtype=dtype)
         # --- backbone (yaml rows 0-8) ---
         self.l0 = ConvBNSiLU(3, _c(64), 3, 2, **kw)  # P1/2
         self.l1 = ConvBNSiLU(_c(64), _c(128), 3, 2, **kw)  # P2/4
@@ -258,6 +277,10 @@ class YOLO12PoseBackboneHead(nn.Module):
         c2 = max(16, ch0 // 4, REG_MAX * 4)
         c3 = max(ch0, min(num_classes, 100))
         c4 = max(ch0 // 4, nk)
+        cls_prior = torch.full((num_classes,), PRIOR_LOGIT)
+        kpt_prior = torch.zeros(nk)
+        if kpt_dim == 3:
+            kpt_prior[2::3] = PRIOR_LOGIT
         for li, ch in enumerate(chans):
             self.add_module(f"box{li}_0", ConvBNSiLU(ch, c2, 3, **kw))
             self.add_module(f"box{li}_1", ConvBNSiLU(c2, c2, 3, **kw))
@@ -267,10 +290,10 @@ class YOLO12PoseBackboneHead(nn.Module):
             self.add_module(f"cls{li}_0pw", ConvBNSiLU(ch, c3, 1, **kw))
             self.add_module(f"cls{li}_1dw", ConvBNSiLU(c3, c3, 3, groups=c3, **kw))
             self.add_module(f"cls{li}_1pw", ConvBNSiLU(c3, c3, 1, **kw))
-            self.add_module(f"cls{li}_2", Conv1x1(c3, num_classes, dtype))
+            self.add_module(f"cls{li}_2", Conv1x1(c3, num_classes, dtype, cls_prior))
             self.add_module(f"kpt{li}_0", ConvBNSiLU(ch, c4, 3, **kw))
             self.add_module(f"kpt{li}_1", ConvBNSiLU(c4, c4, 3, **kw))
-            self.add_module(f"kpt{li}_2", Conv1x1(c4, nk, dtype))
+            self.add_module(f"kpt{li}_2", Conv1x1(c4, nk, dtype, kpt_prior))
 
     def _seq(self, x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
         for name in names:
@@ -301,7 +324,8 @@ class YOLO12PoseBackboneHead(nn.Module):
 
 def decode_predictions(level_outputs: Sequence[torch.Tensor], num_classes: int = 1,
                        num_keypoints: int = 4, kpt_dim: int = 3):
-    """Anchor-free decode, in float32 whatever the network's dtype: DFL
+    """Anchor-free decode, in float32 whatever the network's dtype (in the
+    dtype ``Tensor.float`` gives, float64 in a float64 pass): DFL
     expectation -> ltrb -> xyxy boxes; per anchor and keypoint a confidence
     (sigmoid) and a local offset in KPT_OFFSET_SCALE-pixel units around the
     anchor centre. Returns flattened (B, A, 4) boxes, (B, A, classes) scores
@@ -310,13 +334,14 @@ def decode_predictions(level_outputs: Sequence[torch.Tensor], num_classes: int =
     for out, stride in zip(level_outputs, STRIDES):
         out = out.float()
         b, h, w, _ = out.shape
-        bins = torch.arange(REG_MAX, dtype=torch.float32, device=out.device)
+        dt = out.dtype
+        bins = torch.arange(REG_MAX, dtype=dt, device=out.device)
         box = out[..., :4 * REG_MAX].reshape(b, h, w, 4, REG_MAX)
         dist = (torch.softmax(box, dim=-1) * bins).sum(-1)  # (b, h, w, 4) ltrb
         cls = out[..., 4 * REG_MAX:4 * REG_MAX + num_classes]
         kpt = out[..., 4 * REG_MAX + num_classes:].reshape(b, h, w, num_keypoints, kpt_dim)
-        cx = (torch.arange(w, dtype=torch.float32, device=out.device) + 0.5).expand(h, w)
-        cy = (torch.arange(h, dtype=torch.float32, device=out.device) + 0.5)[:, None].expand(h, w)
+        cx = (torch.arange(w, dtype=dt, device=out.device) + 0.5).expand(h, w)
+        cy = (torch.arange(h, dtype=dt, device=out.device) + 0.5)[:, None].expand(h, w)
         x1 = (cx - dist[..., 0]) * stride
         y1 = (cy - dist[..., 1]) * stride
         x2 = (cx + dist[..., 2]) * stride
@@ -389,13 +414,13 @@ def top1_detection(boxes: torch.Tensor, scores: torch.Tensor, kpts: torch.Tensor
 
 class YOLO12Pose(nn.Module):
     """``forward`` returns the decoded (boxes, scores, kpts); ``levels``
-    the raw per-level head outputs."""
+    the raw per-level head outputs (what the loss trains)."""
 
     def __init__(self, num_classes: int = 1, num_keypoints: int = 4, kpt_dim: int = 3,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 fold_bn: bool = False, dtype: torch.dtype = torch.bfloat16) -> None:
         super().__init__()
         self.num_classes, self.num_keypoints, self.kpt_dim = num_classes, num_keypoints, kpt_dim
-        self.net = YOLO12PoseBackboneHead(num_classes, num_keypoints, kpt_dim, dtype)
+        self.net = YOLO12PoseBackboneHead(num_classes, num_keypoints, kpt_dim, fold_bn, dtype)
 
     def levels(self, x: torch.Tensor) -> List[torch.Tensor]:
         return self.net(x)

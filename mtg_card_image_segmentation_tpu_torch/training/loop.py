@@ -99,29 +99,56 @@ def make_pose_train_step():
     return train_step
 
 
-def pose_grads_float64(model: torch.nn.Module, images: torch.Tensor,
-                       targets: torch.Tensor):
-    """The pose train step's loss and gradients in float64, the reference
-    that the float32 step's gradients are held to: a float64 copy of
-    ``model`` in train mode, its float32 casts (``Tensor.float``) made
-    float64 for the call; ``model`` itself is left as it was. Returns
-    (loss, {parameter name: gradient}), zeros where a parameter feeds
-    nothing, as the step gives them."""
+def float64_copy(model: torch.nn.Module) -> torch.nn.Module:
+    """A float64 copy of ``model``, its compute dtypes (``self.dtype``)
+    made float64; ``model`` itself is left as it was. Call it inside
+    :func:`float64_casts`."""
     import copy
 
-    ref = copy.deepcopy(model).double().train()
+    ref = copy.deepcopy(model).double()
     for m in ref.modules():
         if isinstance(getattr(m, "dtype", None), torch.dtype):
             m.dtype = torch.float64
+    return ref
+
+
+@contextmanager
+def float64_casts():
+    """``Tensor.float`` made ``Tensor.double`` inside the block: the port's
+    modules cast to float32 where the reference does, and a float64 pass
+    keeps float64 through those casts."""
     cast = torch.Tensor.float
     torch.Tensor.float = torch.Tensor.double
     try:
-        loss = losses_lib.heatmap_mse_loss(ref(images.double()), targets.double())
-        loss.backward()
+        yield
     finally:
         torch.Tensor.float = cast
+
+
+def grads_float64(model: torch.nn.Module, loss_of, *inputs: torch.Tensor):
+    """A train step's loss and gradients in float64, the reference that the
+    float32 step's gradients are held to: ``loss_of(copy, *inputs)`` on a
+    float64 copy of ``model`` in train mode, with its float32 casts
+    (``Tensor.float``) made float64 for the call and ``inputs`` made
+    float64 where they are floating point; ``model`` itself is left as it
+    was. Returns (loss, {parameter name: gradient}, the float64 copy),
+    zeros where a parameter feeds nothing, as the steps give them; the
+    copy's BatchNorm running statistics have moved as the step's do, in
+    float64."""
+    ref = float64_copy(model).train()
+    with float64_casts():
+        loss = loss_of(ref, *(x.double() if x.is_floating_point() else x for x in inputs))
+        loss.backward()
     return float(loss.detach()), {n: torch.zeros_like(p) if p.grad is None else p.grad
-                                  for n, p in ref.named_parameters()}
+                                  for n, p in ref.named_parameters()}, ref
+
+
+def pose_grads_float64(model: torch.nn.Module, images: torch.Tensor,
+                       targets: torch.Tensor):
+    """The pose train step's loss and gradients in float64
+    (:func:`grads_float64` of the heatmap MSE)."""
+    return grads_float64(model, lambda m, x, t: losses_lib.heatmap_mse_loss(m(x), t),
+                         images, targets)[:2]
 
 
 def make_pose_eval_step(image_hw: tuple[int, int]):

@@ -158,11 +158,17 @@ def init_flax_defaults(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     default initializers, drawn from a torch generator seeded with ``seed``:
     conv and transpose-conv kernels LeCun-normal truncated at two standard
     deviations (``variance_scaling(1, "fan_in", "truncated_normal")``),
-    biases 0, BN scale 1 and bias 0, running mean 0 and variance 1."""
+    biases 0 (a module's ``bias_prior`` where it has one: the YOLO head's
+    priors), BN scale 1 and bias 0, running mean 0 and variance 1."""
     gen = torch.Generator().manual_seed(seed)
+    modules = dict(model.named_modules())
     for name, t in model.state_dict().items():
         module, leaf = name.rsplit(".", 1)
         if leaf == "num_batches_tracked":
+            continue
+        prior = getattr(modules[module], "bias_prior", None)
+        if leaf == "bias" and prior is not None:
+            t.copy_(prior)
             continue
         if t.dim() == 4:
             # fan-in: OIHW convs I*kh*kw; (in, out, kh, kw) transpose convs
@@ -225,17 +231,19 @@ def init_hrnet_flax_like(seed: int, num_keypoints: int = 4) -> Tuple[Dict[str, A
     return state_dict_to_flax(sd)
 
 
-def yolo_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+def yolo_from_flax(params: Dict[str, Any], batch_stats: Optional[Dict[str, Any]],
                    dtype: torch.dtype = torch.float32) -> YOLO12Pose:
     """Build the port's ``YOLO12Pose`` (eval mode, float32 parameters,
     compute ``dtype``) from a Flax tree; classes and keypoints are read from
-    the tree (``kpt_dim`` is 3: x, y, confidence)."""
+    the tree (``kpt_dim`` is 3: x, y, confidence). A tree without
+    ``batch_stats`` is taken as BN-folded (``fold_bn=True``,
+    ``export/fold_bn.py``)."""
     net = params["net"]
     num_classes = int(np.shape(net["cls0_2"]["kernel"])[-1])
     model = YOLO12Pose(
         num_classes=num_classes,
         num_keypoints=int(np.shape(net["kpt0_2"]["kernel"])[-1]) // 3,
-        kpt_dim=3, dtype=dtype,
+        kpt_dim=3, fold_bn=not batch_stats, dtype=dtype,
     )
     model.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
     return model.eval()
@@ -255,20 +263,17 @@ def init_yolo_flax_like(seed: int, num_classes: int = 1,
     rng = np.random.default_rng(seed)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     model = YOLO12Pose(num_classes=num_classes, num_keypoints=num_keypoints)
+    modules = dict(model.named_modules())
     for name, t in model.state_dict().items():
         module, leaf = name.rsplit(".", 1)
         shape = tuple(t.shape)
         if leaf == "num_batches_tracked":
             continue
-        last = module.rsplit(".", 1)[-1]
+        prior = getattr(modules[module], "bias_prior", None)
         if t.dim() == 4:
             a = rng.standard_normal(shape) / np.sqrt(int(np.prod(shape[1:])))
-        elif leaf == "bias" and last.endswith("_2"):  # the head's plain convs
-            a = np.zeros(shape)
-            if last.startswith("cls"):
-                a[:] = -4.595
-            elif last.startswith("kpt"):
-                a[2::3] = -4.595
+        elif leaf == "bias" and prior is not None:  # the head's plain convs
+            a = prior.numpy()
         elif leaf in ("weight", "running_var"):
             a = rng.uniform(0.8, 1.2, shape) if leaf == "weight" else rng.uniform(0.6, 1.4, shape)
         else:  # BN bias and mean

@@ -11,15 +11,17 @@ original frame, visualization, timing). Runs on the CUDA card;
   python pose_inference_torch.py --onnx runs/pose/exported --synthetic 2
   python pose_inference_torch.py --checkpoint runs/yolo/checkpoints/best_model \\
       --family yolo --synthetic 4
+  python pose_inference_torch.py --onnx exported_models_yolo --family yolo --synthetic 2
 
 --family hrnet (the default) runs an HRNet checkpoint or, with --onnx, a
 shipped HRNet artifact through the port's torch ONNX executor; a package
 DIRECTORY walks the int8 -> fp16 -> fp32 -> dynamic ladder, and every rung
 that falls is printed with its reason. --family yolo runs a YOLO12n-pose
-checkpoint through ``YoloCornerPredictor``. Not ported yet: --family yolo
---onnx, which needs the YOLO export and its client decode (ROADMAP Queue A
-item 6), and the JAX CLI's --stablehlo, which waits for the port's
-torch.export artifact (Queue A item 8).
+checkpoint through ``YoloCornerPredictor`` or, with --onnx, a shipped YOLO
+artifact (the ``yolo`` ladder) whose output0 goes through the numpy client
+decode (export/yolo_client_decode.py), as the JAX CLI does. Not ported yet:
+the JAX CLI's --stablehlo, which waits for the port's torch.export artifact
+(Queue A item 8).
 
 --synthetic N renders N scenes from seeds 123 + i with the port's renderer
 on the host (a torch.Generator): the same images on every device, but not
@@ -44,7 +46,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--onnx", default=None, metavar="PATH",
                         help="run a shipped .onnx artifact (or walk a package "
                              "directory's int8->fp16->fp32->dynamic ladder) instead of "
-                             "a checkpoint; --family hrnet only")
+                             "a checkpoint")
     parser.add_argument("--image", type=str, default=None, help="image file to run on")
     parser.add_argument("--synthetic", type=int, default=0, help="run on N synthetic samples")
     parser.add_argument("--config", type=str, default=None)
@@ -60,9 +62,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parser.parse_args(argv)
     if (args.checkpoint is None) == (args.onnx is None):
         parser.error("give exactly one of --checkpoint / --onnx")
-    if args.family == "yolo" and args.onnx:
-        parser.error("--family yolo --onnx needs the YOLO ONNX export and its client "
-                     "decode, not ported yet (ROADMAP Queue A item 6); use --checkpoint")
     if args.family == "yolo" and (args.config or args.set):
         parser.error("--family yolo is configured by --imgsz/--threshold only; "
                      "--config/--set apply to the hrnet family")
@@ -89,7 +88,29 @@ def main(argv: Optional[List[str]] = None) -> dict:
         return bilinear_resize(x, h, w)
 
     reasons: List[str] = []
-    if args.family == "yolo":
+    if args.family == "yolo" and args.onnx:
+        from mtg_card_image_segmentation_tpu_torch.export.yolo_client_decode import (
+            decode as client_decode,
+        )
+        from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
+
+        h = w = args.imgsz
+        runner, source, reasons = artifact_backend.load_onnx(args.onnx, "yolo", device)
+        print(f"loaded artifact {source} (yolo)")
+        print(f"ladder fell past: {json.dumps(reasons)}")
+
+        def infer(images01):
+            # stretch-resize to the square input, the joint client decode of
+            # the graph's output0 (one image), mapped back to the original
+            # frame with the (size-1) convention, then to coords01
+            h0, w0 = images01.shape[1:3]
+            x = resized(images01, h, w).permute(0, 3, 1, 2).cpu().numpy()
+            _, _, kp = client_decode(runner(x), num_keypoints=4)
+            px0 = kp[:, :2] * np.asarray([(w0 - 1) / (w - 1), (h0 - 1) / (h - 1)])
+            coords01 = px0 / np.asarray([w0 - 1.0, h0 - 1.0])
+            return torch.from_numpy(coords01[None]), torch.from_numpy(kp[None, :, 2])
+
+    elif args.family == "yolo":
         from mtg_card_image_segmentation_tpu_torch.serving.pose_predictor import (
             YoloCornerPredictor,
         )
@@ -164,8 +185,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     for sample_name, img in samples:
         t0 = time.perf_counter()
         coords01, conf = infer(img[None])
-        coords01 = coords01[0].float().cpu().numpy()  # the copy fences the computation
-        conf = conf[0].float().cpu().numpy()
+        # the copy fences the computation; float64 stays float64 (the client
+        # decode's), float32 widens exactly
+        coords01 = coords01[0].double().cpu().numpy()
+        conf = conf[0].double().cpu().numpy()
         dt_ms = (time.perf_counter() - t0) * 1e3
         h0, w0 = img.shape[:2]
         px = coords01 * np.array([w0 - 1, h0 - 1])  # scale to the original size

@@ -401,6 +401,151 @@ def test_chip_smoke_export_referee(card, cpu, excused):
                                     + ["gate fp16 FAIL"])
 
 
+def test_gate_probes_are_the_jax_clis_draws():
+    """``export_seg_torch.gate_probes`` gives the float32 gates' inputs in
+    export_seg.py's order from one ``default_rng(0)``: the fp32 probe (b1),
+    then the dynamic graph's b1 and b4; chip_smoke's float64 referee reruns
+    a missed gate on the same input."""
+    rng = np.random.default_rng(0)
+    want = [rng.standard_normal((nb, 3, H, W)).astype(np.float32) for nb in (1, 1, 4)]
+    got = export_seg_torch.gate_probes(H, W)
+    assert list(got) == ["fp32", "dynamic b1", "dynamic b4"]
+    for a, b in zip(got.values(), want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fault", [None, "artifact", "card"])
+def test_chip_smoke_float64_referee(weights, folded, tmp_path, fault):
+    """chip_smoke's float64 referee of a missed float32 seg gate, at 64x48
+    with the CPU standing in for the card. A right artifact on a right
+    device is excused: the two float64 runs agree exactly, the artifact
+    computes the model within the 1e-4 gate in float64 (BN folded into
+    float32 weights), and the float32 runs lie near their float64 values. An
+    artifact whose classifier weights are 1 % off is not (its float64
+    error is the fault's size), nor a "card" whose float64 run computes
+    another function (one BN mean moved by 1e-3)."""
+    smoke = _chip_smoke()
+    graph = export_seg_model(folded, (H, W))
+    optimize(graph)
+    if fault == "artifact":
+        last = [t for t in graph.initializers if t.array.ndim == 4][-1]
+        last.array = last.array * np.float32(1.01)
+    path = tmp_path / "model.onnx"
+    graph.save(str(path))
+    calls = []
+
+    def source():
+        calls.append(None)
+        params, stats = weights
+        if fault == "card" and len(calls) == 1:
+            stats = jax.tree.map(np.array, stats)
+            stats["backbone"]["stem"]["bn"]["mean"][0] += 1e-3
+        return from_flax(params, stats, dtype=torch.float32)
+
+    x = export_seg_torch.gate_probes(H, W)["fp32"]
+    row = smoke.export_gate_float64(torch, path, source, x, devices=("cpu", "cpu"))
+    assert len(calls) == 2
+    if fault is None:
+        assert row["float64_card_vs_cpu"] == 0.0
+        assert row["export_error_float64"] < 1e-5
+        assert row["reading_card"] == row["reading_cpu"] < FP32_GATE
+        assert row["graph_rounding"][0] == row["graph_rounding"][1] > 0
+    elif fault == "artifact":
+        assert row["export_error_float64"] > 5 * FP32_GATE
+    else:
+        assert row["float64_card_vs_cpu"] > 1e-6
+    assert smoke.export_gate_rounding_excused(row, FP32_GATE) == (fault is None)
+
+
+class _Downcasts(torch.overrides.TorchFunctionMode):
+    """Records every op that takes a float64 tensor and returns a float32
+    one: a float32 rounding inside a float64 pass."""
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        flat = [*args, *(kwargs or {}).values()]
+        if (any(torch.is_tensor(a) and a.dtype == torch.float64 for a in flat)
+                and torch.is_tensor(out) and out.dtype in (torch.float32, torch.bfloat16)):
+            self.found.append(getattr(func, "__name__", str(func)))
+        return out
+
+
+@pytest.mark.parametrize("family", ["seg", "hrnet", "yolo"])
+def test_float64_pass_rounds_nothing_to_float32(family):
+    """A float64 copy of each model (``training.loop.float64_copy`` inside
+    ``float64_casts``) rounds no activation to float32: chip_smoke's
+    float64 referees hold the card's float64 outputs to the CPU's within
+    1e-10, which a float32 step (the seg model's pooled means were taken
+    in float32) would part by ~4e-7."""
+    from mtg_card_image_segmentation_tpu_torch.training.loop import float64_casts, float64_copy
+    from mtg_card_image_segmentation_tpu_torch.utils.params import (
+        hrnet_from_flax,
+        init_hrnet_flax_like,
+        init_yolo_flax_like,
+        yolo_from_flax,
+    )
+
+    model, x = {
+        "seg": lambda: (from_flax(*init_flax_like(0)[:2], dtype=torch.float32), (1, H, W, 3)),
+        "hrnet": lambda: (hrnet_from_flax(*init_hrnet_flax_like(0)[:2], (16, 16),
+                                          dtype=torch.float32), (1, 64, 64, 3)),
+        "yolo": lambda: (yolo_from_flax(*init_yolo_flax_like(0)[:2], dtype=torch.float32),
+                         (1, 64, 64, 3)),
+    }[family]()
+    ref = float64_copy(model.eval())
+    x = torch.from_numpy(np.random.default_rng(0).random(x))
+    seen = _Downcasts()
+    with float64_casts(), torch.inference_mode(), seen:
+        out = ref(x)
+    outs = out if isinstance(out, (tuple, list)) else [out]
+    assert all(o.dtype == torch.float64 for o in outs if torch.is_tensor(o))
+    assert seen.found == []
+
+
+_ROUNDING_ROW = {"float64_card_vs_cpu": 1.4e-15, "export_error_float64": 1.5e-5,
+                 "graph_rounding": [1.2e-6, 0.9e-6], "model_rounding": [1.1e-6, 1.3e-6]}
+
+
+@pytest.mark.parametrize("change,excused", [
+    ({}, True),
+    # the card's float32 runs within 1e-5 of the largest logit of float64,
+    # however far the CPU's happen to lie
+    ({"graph_rounding": [1e-5, 1e-7]}, True),
+    ({"graph_rounding": [1.1e-5, 1e-5]}, False),
+    ({"model_rounding": [3e-5, 1e-6]}, False),
+    # the card computes another function
+    ({"float64_card_vs_cpu": 2e-10}, False),
+    # the artifact misses the gate in exact arithmetic
+    ({"export_error_float64": 1e-4}, False),
+])
+def test_chip_smoke_float64_referee_rule(change, excused):
+    """``export_gate_rounding_excused``: a miss is excused only where the
+    card's float64 outputs are the CPU's within 1e-10 of the largest logit,
+    the artifact's float64 error is under the gate, and the card's float32
+    graph and model each lie within 1e-5 of the largest logit of their
+    float64 values."""
+    smoke = _chip_smoke()
+    assert smoke.export_gate_rounding_excused(_ROUNDING_ROW | change, FP32_GATE) == excused
+
+
+def test_executor_float64_run(folded):
+    """``make_runner(..., dtype=torch.float64)`` runs a float32 graph in
+    float64: its output is the float32 run's within float32 rounding, and a
+    graph with Cast nodes (the fp16 graph) refuses."""
+    graph = export_seg_model(folded, (H, W))
+    x = export_seg_torch.gate_probes(H, W)["fp32"]
+    out64 = make_runner(graph, "cpu", torch.float64)({"input": x})["output"]
+    out32 = make_runner(graph, "cpu")({"input": x})["output"]
+    assert out64.dtype == np.float64 and out32.dtype == np.float32
+    assert 0 < np.abs(out64 - out32).max() < 1e-5 * np.abs(out64).max()
+    with pytest.raises(NotImplementedError, match="Cast"):
+        make_runner(convert_to_fp16(graph), "cpu", torch.float64)
+
+
 def _probs(z):
     e = np.exp(z - z.max(axis=1, keepdims=True))
     return e / e.sum(axis=1, keepdims=True)

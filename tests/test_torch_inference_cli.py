@@ -5,8 +5,8 @@ rung broken), ``seg_inference_torch.py`` and ``pose_inference_torch.py``
 against ``seg_inference.py`` and ``pose_inference.py`` on the same
 ``--image`` file (an Orbax checkpoint of seeded weights for the JAX CLIs,
 converted by ``tools/orbax_to_torch_checkpoint.py`` for the port's, and
-the same ONNX package for both), and the new CLIs end to end with
-``--device cpu``.
+the same ONNX package for both; YOLO12n-pose from its ONNX package through
+the client decode), and the new CLIs end to end with ``--device cpu``.
 """
 
 import json
@@ -35,6 +35,7 @@ from mtg_card_image_segmentation_tpu_torch.export.onnx_export import (
     export_seg_model,
 )
 from mtg_card_image_segmentation_tpu_torch.export.onnx_optimize import optimize
+from mtg_card_image_segmentation_tpu_torch.export.onnx_yolo import export_yolo_model
 from mtg_card_image_segmentation_tpu_torch.export.quantize import convert_to_int8
 from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
 from mtg_card_image_segmentation_tpu_torch.training.checkpoint import save_params
@@ -47,7 +48,7 @@ from mtg_card_image_segmentation_tpu_torch.utils.params import (
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
-SEG_HW, POSE_HW, HM = (64, 48), (64, 96), (16, 24)
+SEG_HW, POSE_HW, HM, YOLO_S = (64, 48), (64, 96), (16, 24), 64
 SEG_SET = ["--set", f"model.input_height={SEG_HW[0]}", f"model.input_width={SEG_HW[1]}",
            "model.compute_dtype=float32"]
 POSE_SET = ["--set", f"pose.input_height={POSE_HW[0]}", f"pose.input_width={POSE_HW[1]}",
@@ -71,7 +72,8 @@ def _package(tmp, family, graph):
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):
     """Seeded seg and HRNet weights as Orbax checkpoints (JAX) and their
-    conversions (port), their ONNX packages, and a 100x72 photo-like PNG."""
+    conversions (port), their ONNX packages and a YOLO one at 64x64, and a
+    100x72 photo-like PNG."""
     import cv2
 
     sys.path.insert(0, str(REPO / "tools"))
@@ -90,7 +92,9 @@ def work(tmp_path_factory):
     packages = {
         "seg": _package(tmp, "seg", export_seg_model(fold_batch_norm(*trees["seg"]), SEG_HW)),
         "hrnet": _package(tmp, "hrnet", export_pose_model(fold_batch_norm(*trees["hrnet"]),
-                                                          POSE_HW, HM))}
+                                                          POSE_HW, HM)),
+        "yolo": _package(tmp, "yolo", export_yolo_model(fold_batch_norm(*init_yolo_flax_like(0)),
+                                                        imgsz=YOLO_S))}
     rng = np.random.default_rng(0)
     base = torch.from_numpy(rng.random((1, 3, 9, 6)).astype(np.float32))
     img = torch.nn.functional.interpolate(base, size=(100, 72), mode="bilinear",
@@ -109,15 +113,15 @@ def test_ladders_are_the_jax_packages():
     assert artifact_backend.ONNX_LADDERS == jax_backend.ONNX_LADDERS
 
 
-@pytest.mark.parametrize("family", ["seg", "hrnet"])
+@pytest.mark.parametrize("family", ["seg", "hrnet", "yolo"])
 def test_ladder_takes_the_int8_rung_first(work, family):
     d = work["packages"][family]
     fn, chosen, reasons = artifact_backend.load_onnx(str(d), family, "cpu")
     assert os.path.basename(chosen) == artifact_backend.ONNX_LADDERS[family][0]
     assert reasons == []
-    h, w = SEG_HW if family == "seg" else POSE_HW
+    h, w = {"seg": SEG_HW, "hrnet": POSE_HW, "yolo": (YOLO_S, YOLO_S)}[family]
     out = fn(np.zeros((1, 3, h, w), np.float32))
-    assert out.shape == ((1, 2, h, w) if family == "seg" else (1, 4, *HM))
+    assert out.shape == {"seg": (1, 2, h, w), "hrnet": (1, 4, *HM), "yolo": (1, 17, 84)}[family]
     assert os.path.basename(jax_backend.load_onnx(str(d), family)[1]) == os.path.basename(chosen)
 
 
@@ -216,6 +220,23 @@ def test_pose_inference_matches_the_jax_cli(work, source, tmp_path, monkeypatch)
     np.testing.assert_allclose(g["confidences"], w["confidences"], rtol=0, atol=1e-3)
 
 
+def test_yolo_onnx_inference_matches_the_jax_cli(work, tmp_path, monkeypatch):
+    """--family yolo --onnx on the same package and --image as the JAX CLI:
+    both take the int8 rung, and the client-decoded corners and confidences
+    agree within 1e-3 px (both round to 0.01 px)."""
+    args = ["--onnx", str(work["packages"]["yolo"]), "--family", "yolo", "--imgsz",
+            str(YOLO_S), "--image", work["image"]]
+    want = _jax_cli("pose_inference", args, tmp_path / "jax", monkeypatch)
+    got = pose_inference_torch.main([*args, "--device", "cpu", "--output-dir",
+                                     str(tmp_path / "port")])
+    assert got["source"].endswith("yolo_int8.onnx") and got["ladder_fell_past"] == []
+    (g,), (w,) = got["results"], want
+    assert np.asarray(g["corners_xy"]).shape == (4, 2)
+    np.testing.assert_allclose(g["corners_xy"], w["corners_xy"], rtol=0, atol=1e-3)
+    assert g["valid"] == w["valid"]
+    np.testing.assert_allclose(g["confidences"], w["confidences"], rtol=0, atol=1e-3)
+
+
 # --------------------------------------------------------------------------
 # end to end
 # --------------------------------------------------------------------------
@@ -247,15 +268,18 @@ def test_inference_clis_end_to_end_on_cpu(work, tmp_path, capsys):
     assert xy.shape == (4, 2) and np.isfinite(xy).all()
 
 
-def test_inference_clis_refuse_what_is_not_ported_and_need_the_card(work, capsys, monkeypatch):
-    """--family yolo --onnx names ROADMAP Queue A item 6; no --stablehlo
-    flag; without --device cpu the CLIs ask for the card and raise where
-    there is none."""
+def test_inference_clis_refuse_what_is_not_ported_and_need_the_card(work, tmp_path,
+                                                                     monkeypatch):
+    """--family yolo --onnx runs (a synthetic sample through the YOLO
+    ladder's int8 rung on the CPU); no --stablehlo flag; without --device
+    cpu the CLIs ask for the card and raise where there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit):
-        pose_inference_torch.main(["--onnx", str(work["packages"]["hrnet"]), "--family", "yolo",
-                                   "--synthetic", "1", "--device", "cpu"])
-    assert "Queue A item 6" in capsys.readouterr().err
+    r = pose_inference_torch.main(["--onnx", str(work["packages"]["yolo"]), "--family", "yolo",
+                                   "--imgsz", str(YOLO_S), "--synthetic", "1", "--device", "cpu",
+                                   "--output-dir", str(tmp_path / "yolo")])
+    assert r["source"].endswith("yolo_int8.onnx") and r["ladder_fell_past"] == []
+    xy = np.asarray(r["results"][0]["corners_xy"])
+    assert xy.shape == (4, 2) and np.isfinite(xy).all()
     with pytest.raises(SystemExit):
         seg_inference_torch.main(["--stablehlo", "x", "--synthetic", "1"])
     for main, args in ((seg_inference_torch.main, ["--onnx", str(work["packages"]["seg"])]),

@@ -38,6 +38,7 @@ from mtg_card_image_segmentation_tpu_torch.ops.kernels.decoder import (
     fused_head_decode_plain,
     fused_mask_decode,
     fused_mask_decode_plain,
+    tree_order_case,
     upsample2x_add,
     upsample2x_add_plain,
 )
@@ -272,6 +273,22 @@ def test_upsample2x_add_matches_jax_kernel_and_reference():
     assert ours16.dtype == torch.bfloat16
     # bf16 inputs and output: within the inputs' rounding, 3 * 2^-8 relative
     np.testing.assert_allclose(ours16.float().numpy(), ref, rtol=0.02, atol=0.05)
+
+
+def test_fused_head_decode_tree_order_case_matches_jax_kernel():
+    """``tree_order_case``, whose mask depends on the order of the channel
+    sums (empty in the kernels' tree order, full if -1 meets 1 first): the
+    plain head decode and the Pallas kernel (interpret) on the same bf16
+    inputs differ in 0 pixels, and the mask is empty."""
+    x, gw, low, w_lo, bias, out_h, out_w = tree_order_case()
+    ours = fused_head_decode(x, gw, low, w_lo, bias, out_h, out_w)
+    kernel = np.asarray(jax_head_decode(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16 if t.dtype == torch.bfloat16
+                      else jnp.float32) for t in (x, gw, low, w_lo)),
+        jnp.float32(bias), out_h, out_w, interpret=True))
+    assert ours.dtype == torch.uint8 and tuple(ours.shape) == kernel.shape == (2, out_h, out_w)
+    assert int((ours.numpy() != kernel).sum()) == 0
+    assert not kernel.any()
 
 
 def test_fused_head_decode_matches_jax_kernel_and_composed_pipeline():
