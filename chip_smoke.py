@@ -78,7 +78,18 @@ also at 320x240 b128 and b1 from that predictor's features and at a ragged
   card vs CPU, ``export_yolo_torch.py`` with its artifacts card vs CPU,
   ``pose_inference_torch.py --family yolo`` on the package (int8 rung, no
   fall) and on the checkpoint, and the YOLO train step's numbers and
-  profile. The YOLO path launches none of the hand-written kernels.
+  profile. The YOLO path launches none of the hand-written kernels;
+- the ``torch.export`` programs (``.pt2``) the three export CLIs write at
+  full width: each CLI's self-test on the card, ``--pt2`` against
+  ``--checkpoint`` in float32 and each program against its model
+  (``program_clis``), a CPU-exported YOLO program on the card and the
+  card-exported one on the CPU (``yolo_program_devices``), YOLO ``--pt2``
+  against its fp32 ONNX graph;
+- data-parallel training and batch-split serving (``distributed``): the
+  seg fp32 train step at 320x240 b32 in an NCCL group of one rank and in a
+  gloo group of two ranks on the one card (this script's
+  ``distributed-worker`` mode), against the plain step and its float64
+  step, and ``SegPredictor(mesh=make_mesh())`` through kernels 1-3.
 
 It also profiles a few b128 ``predict`` calls of the three
 predictors: device time by kernel class and the card's idle share.
@@ -103,6 +114,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2654,6 +2666,11 @@ def phase_compress_export(torch, card, root: Path, ds_root: Path) -> dict:
             "export_seconds": json.loads(re.search(r"export seconds (\{.*\})", log).group(1)),
             "sizes_mb": {a: (d / a).stat().st_size / 1e6 for a in ARTIFACTS},
             "executor_card_vs_cpu": executor_card_vs_cpu(torch, d, *sources[k])}
+    # each export's torch.export artifact: the CLI's self-test, MB, seconds
+    bad_programs = []
+    for k, d in exports.items():
+        exported[k]["torch_export"], b = program_fields(d / "model.pt2")
+        bad_programs += [f"export {k}: {x}" for x in b]
     # the pruned checkpoint, slimmed, served through kernels 1-3
     pred = SegPredictor(sp, ss, h, w)
     s = synthetic_batch(torch.Generator(device="cuda").manual_seed(30_000), DATA_B, h, w,
@@ -2719,7 +2736,7 @@ def phase_compress_export(torch, card, root: Path, ds_root: Path) -> dict:
           "timing": timing, "tolerance": CE_TOL,
           "seconds": time.perf_counter() - t_start,
           "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
-    bad = []
+    bad = bad_programs
     if any(r["device"] is None or not r["device"].startswith("cuda") for r in runs):
         bad.append(f"a CLI ran off the card: {[r['device'] for r in runs]}")
     if evals["eval_files"]["num_images"] != DATA_FRAMES[1]:
@@ -2749,6 +2766,171 @@ def phase_compress_export(torch, card, root: Path, ds_root: Path) -> dict:
         fail(f"compress_export: {bad}")
     _check_seg_launches("compress_export_served", launches)
     return launches
+
+
+PROGRAM_ATOL = 1e-5          # the torch.export self-test's gate (export/torch_export.py)
+PROGRAM_CLI_TOL = {"seg_fraction": 1e-4, "seg_confidence": 1e-5, "pose_px": 0.5,
+                   "yolo_px": 0.02, "direct_rel": 1e-5}
+YOLO_PX_TOL, YOLO_PROB_TOL = 2e-3, 1e-5   # export_yolo_torch.py's fp32 gate; probability rows
+
+
+def program_fields(path: Path) -> tuple:
+    """An export CLI's ``torch.export`` artifact, from its sidecar: the
+    CLI's self-test on the card (below PROGRAM_ATOL), the trace-and-save
+    seconds, MB. (The programs are timed where they are loaded and held
+    against their models: ``program_clis``, ``yolo_program_devices``.)"""
+    info = json.loads(Path(f"{path}.json").read_text())
+    fields = {"file": path.name, "mb": info["bytes"] / 1e6,
+              "export_seconds": info["export_seconds"], "device": info["device"],
+              "self_test_max_diff": info["self_test_max_diff"],
+              "self_test_pass": info["self_test_pass"]}
+    ok = (info["self_test_pass"] and info["self_test_max_diff"] < PROGRAM_ATOL
+          and info["device"].startswith("cuda"))
+    return fields, [] if ok else [f"{path.name}: {info}"]
+
+
+def yolo_rows_error(got, want) -> tuple:
+    """max|got - want| on output0's pixel rows and on its probability rows."""
+    import numpy as np
+
+    n = want.shape[1]
+    prob = [4] + [i for i in range(5, n) if (i - 5) % 3 == 2]
+    px = [i for i in range(n) if i not in prob]
+    return (float(np.abs(got[:, px] - want[:, px]).max()),
+            float(np.abs(got[:, prob] - want[:, prob]).max()))
+
+
+def program_clis(torch, seg_pkg: Path, seg_ck: Path, pose_pkg: Path, pose_ck: Path,
+                 root: Path) -> tuple:
+    """``seg_inference_torch.py`` and ``pose_inference_torch.py`` with
+    ``--pt2`` (the dense seg package's model.pt2, the pose package's
+    pose.pt2) against ``--checkpoint`` on the same checkpoints, float32,
+    two synthetic samples each, in this process on the card under
+    ``ieee_fp32()``: seg card fraction and confidence, pose corners within
+    the served corner gate (a barely trained HRNet's heatmaps are flat, so
+    the decode's argmax is held on the heatmaps below); and each program
+    against its model directly on a probe: the logits / heatmaps within
+    1e-5 of their largest value, the seg masks equal, and the ms per b1
+    call of the program loaded on the card (its output copied to the
+    host, as the runner returns it)."""
+    import numpy as np
+
+    import pose_inference_torch
+    import seg_inference_torch
+    from mtg_card_image_segmentation_tpu_torch.serving.artifact_backend import load_program
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
+    from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax, hrnet_from_flax
+    from mtg_card_image_segmentation_tpu_torch.utils.platform import ieee_fp32
+
+    fields, bad = {}, []
+    runs = {"seg": (seg_inference_torch, seg_pkg, seg_ck, ["model.compute_dtype=float32"]),
+            "pose": (pose_inference_torch, pose_pkg, pose_ck, ["pose.compute_dtype=float32"])}
+    for name, (mod, pkg, ck, sets) in runs.items():
+        out = {}
+        for src, args in (("pt2", ["--pt2", str(pkg)]), ("checkpoint", ["--checkpoint", str(ck)])):
+            t0 = time.perf_counter()
+            with ieee_fp32():
+                r = mod.main([*args, "--synthetic", "2", "--set", *sets,
+                              "--output-dir", str(root / f"program_{name}_{src}")])
+            out[src] = {"source": Path(r["source"]).name, "seconds": time.perf_counter() - t0,
+                        "results": r["results"]}
+        pairs = list(zip(out["pt2"]["results"], out["checkpoint"]["results"]))
+        if name == "seg":
+            diff = {"card_fraction": max(abs(a["card_pixel_fraction"] - b["card_pixel_fraction"])
+                                         for a, b in pairs),
+                    "confidence": max(abs(a["mean_card_confidence"] - b["mean_card_confidence"])
+                                      for a, b in pairs)}
+            if not (diff["card_fraction"] <= PROGRAM_CLI_TOL["seg_fraction"]
+                    and diff["confidence"] <= PROGRAM_CLI_TOL["seg_confidence"]):
+                bad.append(f"seg --pt2 vs --checkpoint: {diff}")
+        else:
+            diff = {"corners_px": max(float(np.abs(np.subtract(a["corners_xy"],
+                                                                b["corners_xy"])).max())
+                                      for a, b in pairs)}
+            if not diff["corners_px"] <= PROGRAM_CLI_TOL["pose_px"]:
+                bad.append(f"pose --pt2 vs --checkpoint: {diff}")
+        fields[name] = {**out, "pt2_vs_checkpoint": diff}
+    # the programs against their models on a probe, on the card
+    for name, pkg, ck, family in (("seg", seg_pkg, seg_ck, "seg"),
+                                  ("pose", pose_pkg, pose_ck, "hrnet")):
+        params, stats, _ = load_params(str(ck.parent), ck.name)
+        if family == "seg":
+            model, hw = from_flax(params, stats, dtype=torch.float32), DATA_HW
+        else:
+            model, hw = hrnet_from_flax(params, stats, POSE_HEATMAP_HW, dtype=torch.float32), POSE_HW
+        x = np.random.default_rng(SEED + 12).standard_normal((1, 3, *hw)).astype(np.float32)
+        fn, _ = load_program(str(pkg), family, "cuda")
+        with ieee_fp32(), torch.inference_mode():
+            got = fn(x)
+            want = model.cuda()(torch.from_numpy(x.transpose(0, 2, 3, 1)).cuda())
+            want = want.permute(0, 3, 1, 2).cpu().numpy()
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        xt = torch.from_numpy(x).cuda()
+        row = {"program_vs_model_rel": rel,
+               "program_ms_b1": median_ms(torch, lambda: fn(xt), 5, 2)}
+        if family == "seg":
+            row["mask_agreement"] = float((got.argmax(1) == want.argmax(1)).mean())
+        fields[name]["direct"] = row
+        if not rel <= PROGRAM_CLI_TOL["direct_rel"] or row.get("mask_agreement", 1.0) < 1.0:
+            bad.append(f"{name} program vs model on the card: {row}")
+    return fields, bad
+
+
+def yolo_program_devices(torch, pkg: Path, ck: Path, root: Path) -> tuple:
+    """The YOLO program across devices: the card-exported yolo.pt2 run on
+    the CPU, and one exported on the CPU (its anchor grid's ``arange``
+    nodes carry ``device=cpu``) run on the card through
+    ``move_to_device_pass``; each against the folded float32 model on the
+    same device (the card under ``ieee_fp32()``): pixel rows within the
+    export CLI's 2e-3 px gate, probability rows within 1e-5."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.export.fold_bn import fold_batch_norm
+    from mtg_card_image_segmentation_tpu_torch.export.torch_export import (
+        YoloOutput0,
+        export_program,
+    )
+    from mtg_card_image_segmentation_tpu_torch.serving.artifact_backend import load_program
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
+    from mtg_card_image_segmentation_tpu_torch.utils.params import yolo_from_flax
+    from mtg_card_image_segmentation_tpu_torch.utils.platform import ieee_fp32
+
+    params, stats, _ = load_params(str(ck), "final_model")
+    folded = fold_batch_norm(params, stats)
+    s = YOLO_SIZE
+    x = np.random.default_rng(SEED + 13).random((1, 3, s, s)).astype(np.float32)
+    models = {dev: YoloOutput0(yolo_from_flax(folded, None, dtype=torch.float32).to(dev))
+              for dev in ("cpu", "cuda")}
+
+    def model_out(dev):
+        with ieee_fp32(), torch.inference_mode():
+            return models[dev](torch.from_numpy(x).to(dev)).cpu().numpy()
+
+    cpu_path = root / "yolo_cpu.pt2"
+    info = export_program(models["cpu"], (torch.zeros(1, 3, s, s),), str(cpu_path),
+                          self_test=False)  # held below, on the card
+    program = torch.export.load(str(cpu_path))
+    node_devices = sorted({str(n.kwargs["device"]) for n in program.graph.nodes
+                           if n.op == "call_function" and "device" in n.kwargs})
+    fields, bad = {"cpu_export": {"mb": info["bytes"] / 1e6,
+                                  "export_seconds": info["export_seconds"],
+                                  "graph_node_devices": node_devices}}, []
+    for name, path, dev in (("card_export_on_cpu", pkg / "yolo.pt2", "cpu"),
+                            ("cpu_export_on_card", cpu_path, "cuda")):
+        fn, _ = load_program(str(path), "yolo", dev)
+        with ieee_fp32():
+            got = fn(x)
+        px, prob = yolo_rows_error(got, model_out(dev))
+        row = {"px_max_abs": px, "prob_max_abs": prob}
+        if dev == "cuda":
+            xt = torch.from_numpy(x).cuda()
+            row["program_ms_b1"] = median_ms(torch, lambda: fn(xt), 5, 2)
+        fields[name] = row
+        if not (px <= YOLO_PX_TOL and prob <= YOLO_PROB_TOL):
+            bad.append(f"yolo program {name}: {row}")
+    if node_devices != ["cpu"]:
+        bad.append(f"the CPU-exported YOLO graph's node devices: {node_devices}")
+    return fields, bad
 
 
 POSE_GATE_B = 4             # the fp32 pose train step's batch, card vs CPU
@@ -3096,15 +3278,16 @@ def pose_export(torch, root: Path, ck: Path) -> tuple:
             row["pass"] = row["finite"] and (row["card_vs_cpu_max_abs"]
                                              <= 1e-5 * row["heatmap_max_abs"])
         rows.append(row)
+    program, bad_program = program_fields(out_dir / "pose.pt2")
     fields = {"cli_exit": run["exit"], "cli_wall_seconds": run["wall_seconds"],
               "cli_gates": [ln for ln in log.splitlines() if re.match(r"\S+ parity", ln)],
               "cli_verdicts": verdicts, "may_miss": ["fp16", "int8"], "cli_faults": faults,
               "pose_info_parity": (json.loads((out_dir / "pose_info.json").read_text())["parity"]
                                    if (out_dir / "pose_info.json").exists() else None),
               "sizes_mb": {a: (out_dir / a).stat().st_size / 1e6 for a in POSE_ARTIFACTS},
-              "executor_card_vs_cpu": rows}
+              "executor_card_vs_cpu": rows, "torch_export": program}
     bad = [f"export CLI: {f}" for f in faults] + [f"executor: {r}" for r in rows
-                                                   if not r["pass"]]
+                                                   if not r["pass"]] + bad_program
     if run["device"] is None or not run["device"].startswith("cuda"):
         bad.append(f"export ran off the card: {run['device']}")
     return out_dir, fields, bad
@@ -3174,7 +3357,8 @@ def pose_train_numbers(torch, card) -> dict:
             "profile_device_idle_share": prof["device_idle_share"]}
 
 
-def phase_pose_pipeline(torch, card, root: Path, seg_ck: Path, seg_pkg: Path) -> dict:
+def phase_pose_pipeline(torch, card, root: Path, seg_ck: Path, seg_pkg: Path,
+                        seg_dense_pkg: Path) -> dict:
     """HRNet pose training, evaluation, export and the inference CLIs on the
     card at the pose config (480x640, 120x160 heatmaps, b24, bf16): one
     train step card vs CPU (``pose_train_fp32_card_vs_cpu``),
@@ -3182,9 +3366,10 @@ def phase_pose_pipeline(torch, card, root: Path, seg_ck: Path, seg_pkg: Path) ->
     trained checkpoint served through kernel 4, ``PoseEvaluator`` card vs
     CPU, ``export_pose_torch.py`` with every artifact card vs CPU, the pose
     and seg inference CLIs (``seg_ck``/``seg_pkg``: ``train_cli``'s
-    checkpoint and ``compress_export``'s slim package), and the train
-    step's numbers and profile. Returns the served call's kernel
-    launches."""
+    checkpoint and ``compress_export``'s slim package), both with ``--pt2``
+    against ``--checkpoint`` (``seg_dense_pkg``: the dense package of
+    ``seg_ck``; ``program_clis``), and the train step's numbers and profile.
+    Returns the served call's kernel launches."""
     t_start = time.perf_counter()
     pose_train_gate_fp32(torch, card)
     ck, train = pose_train_cli(torch, card, root)
@@ -3192,11 +3377,14 @@ def phase_pose_pipeline(torch, card, root: Path, seg_ck: Path, seg_pkg: Path) ->
     evaluated, bad_eval = pose_eval_card_vs_cpu(torch, ck)
     pose_pkg, exported, bad_export = pose_export(torch, root, ck)
     clis, bad_cli = inference_clis(pose_pkg, ck / "final_model", seg_pkg, seg_ck, root)
+    programs, bad_programs = program_clis(torch, seg_dense_pkg, seg_ck, pose_pkg,
+                                          ck / "final_model", root)
     numbers = pose_train_numbers(torch, card)
-    bad += bad_eval + bad_export + bad_cli
+    bad += bad_eval + bad_export + bad_cli + bad_programs
     emit({"phase": "pose_pipeline", "size": list(POSE_HW), "heatmap": list(POSE_HEATMAP_HW),
           "batch": POSE_B, "train_cli": train, "served": served,
           "evaluator_card_vs_cpu": evaluated, "export": exported, "inference_clis": clis,
+          "program_clis": programs,
           "train_step": numbers, "tolerance": POSE_TOL,
           "seconds": time.perf_counter() - t_start,
           "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
@@ -3546,17 +3734,21 @@ def yolo_export(torch, root: Path, ck: Path) -> tuple:
             row["pass"] = row["finite"] and (row["card_vs_cpu_max_abs"]
                                              <= YOLO_TOL["executor_rel"] * row["output_max_abs"])
         rows.append(row)
+    program, bad_program = program_fields(out_dir / "yolo.pt2")
+    devices, bad_devices = yolo_program_devices(torch, out_dir, ck, root)
     fields = {"cli_exit": run["exit"], "cli_wall_seconds": run["wall_seconds"],
               "cli_gates": [ln for ln in log.splitlines() if re.match(r"\S+ parity", ln)],
               "cli_verdicts": verdicts, "may_miss": ["fp16", "int8"],
               "card_readings": readings, "cpu_referee_readings": cpu_readings,
               "refereed": sorted(refereed), "cli_faults": faults,
+              "torch_export": program, "torch_export_devices": devices,
               "yolo_info_parity": (json.loads((out_dir / "yolo_info.json").read_text())["parity"]
                                    if (out_dir / "yolo_info.json").exists() else None),
               "sizes_mb": {a: (out_dir / a).stat().st_size / 1e6 for a in YOLO_ARTIFACTS},
               "executor_card_vs_cpu": rows}
     bad = [f"export CLI: {f}" for f in faults] + [f"executor: {r}" for r in rows
                                                    if not r["pass"]]
+    bad += bad_program + bad_devices
     if run["device"] is None or not run["device"].startswith("cuda"):
         bad.append(f"export ran off the card: {run['device']}")
     if not (out_dir / "decode_yolo.py").exists():
@@ -3567,19 +3759,28 @@ def yolo_export(torch, root: Path, ck: Path) -> tuple:
 def yolo_inference_cli(pkg: Path, ck: Path, root: Path) -> tuple:
     """``pose_inference_torch.py --family yolo`` through ``main(argv)`` in
     this process, on the card: on the package directory, where the ladder
-    must choose the int8 rung and fall past nothing, and on the checkpoint,
-    two synthetic samples each."""
+    must choose the int8 rung and fall past nothing, on the checkpoint, and
+    with ``--pt2`` against ``--onnx`` on the fp32 graph (both under
+    ``ieee_fp32()``: one client decode of one output0, corners within
+    0.02 px), two synthetic samples each."""
     import math
 
     import pose_inference_torch
 
+    from mtg_card_image_segmentation_tpu_torch.utils.platform import ieee_fp32
+
     calls = {"yolo_onnx": (["--onnx", str(pkg)], "yolo_int8.onnx"),
-             "yolo_checkpoint": (["--checkpoint", str(ck)], None)}
+             "yolo_checkpoint": (["--checkpoint", str(ck)], None),
+             "yolo_pt2": (["--pt2", str(pkg)], "yolo.pt2"),
+             "yolo_onnx_fp32": (["--onnx", str(pkg / "yolo.onnx")], "yolo.onnx")}
     fields, bad = {}, []
     for name, (args, rung) in calls.items():
         t0 = time.perf_counter()
-        r = pose_inference_torch.main([*args, "--family", "yolo", "--synthetic", "2",
-                                       "--output-dir", str(root / f"inference_{name}")])
+        # the float32 artifacts with the host's fp32 accuracy, as the export
+        # gates run them
+        with ieee_fp32() if name in ("yolo_pt2", "yolo_onnx_fp32") else nullcontext():
+            r = pose_inference_torch.main([*args, "--family", "yolo", "--synthetic", "2",
+                                           "--output-dir", str(root / f"inference_{name}")])
         fields[name] = {"source": Path(r["source"]).name,
                         "ladder_fell_past": r["ladder_fell_past"],
                         "seconds": time.perf_counter() - t0, "results": r["results"]}
@@ -3589,6 +3790,13 @@ def yolo_inference_cli(pkg: Path, ck: Path, root: Path) -> tuple:
         for res in r["results"]:
             if not all(math.isfinite(v) for row in res["corners_xy"] for v in row):
                 bad.append(f"{name}: not finite {res}")
+    # the program and the fp32 graph: one client decode of one output0
+    px = max(abs(a - b) for ra, rb in zip(fields["yolo_pt2"]["results"],
+                                          fields["yolo_onnx_fp32"]["results"])
+             for pa, pb in zip(ra["corners_xy"], rb["corners_xy"]) for a, b in zip(pa, pb))
+    fields["pt2_vs_onnx_fp32_px"] = px
+    if not px <= PROGRAM_CLI_TOL["yolo_px"]:
+        bad.append(f"yolo --pt2 vs the fp32 graph: {px} px")
     return fields, bad
 
 
@@ -3651,6 +3859,198 @@ def phase_yolo_pipeline(torch, card, root: Path) -> None:
           "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
     if bad:
         fail(f"yolo_pipeline: {bad}")
+
+
+DIST_HW, DIST_B = (320, 240), 32   # the seg config's train step
+DIST_SGD = dict(name="sgd", schedule="constant", warmup_epochs=0, learning_rate=0.05)
+DIST_FP32_FACTOR = 2.0             # fp32 distance from float64 / the plain step's
+DIST_LOSS_REL = 1e-6
+
+
+def dist_record(state, stats) -> dict:
+    """A train step's loss, gradients and BN statistics as float64 numpy."""
+    out = {"loss": float(stats["loss"])}
+    out.update({f"grad/{n}": p.grad.double().cpu().numpy()
+                for n, p in state.model.named_parameters()})
+    out.update({f"buffer/{n}": b.double().cpu().numpy()
+                for n, b in state.model.named_buffers() if "running" in n})
+    return out
+
+
+def dist_distance(rec: dict, ref: dict, prefix: str) -> float:
+    """The worst tensor's max|rec - ref| over its largest |ref| (floored at
+    1e-5 of the largest entry of all: gradients zero in exact arithmetic);
+    ``tests/test_torch_distributed.py``'s measure."""
+    import numpy as np
+
+    keys = [k for k in ref if k.startswith(prefix)]
+    top = max(float(np.abs(ref[k]).max()) for k in keys)
+    return max(float(np.abs(rec[k] - ref[k]).max()) / max(float(np.abs(ref[k]).max()),
+                                                          1e-5 * top) for k in keys)
+
+
+def dist_step(torch, imgs, masks, mesh=None, timed: int = 0):
+    """One fp32 SGD step of the seg model (Flax default init from SEED) on
+    (imgs, masks): its record, and with ``timed`` the median ms of that many
+    further steps."""
+    from mtg_card_image_segmentation_tpu_torch.training.loop import make_train_step
+
+    state = train_state(torch, DIST_SGD, "float32")
+    step = make_train_step(mesh=mesh)
+    _, stats = step(state, imgs, masks)
+    rec = dist_record(state, stats)
+    if timed:
+        rec["step_ms"] = median_ms(torch, lambda: step(state, imgs, masks), timed, 1)
+    return rec
+
+
+def distributed_worker(rank: str, port: str, work: str) -> int:
+    """One rank of the ``distributed`` phase's two-process gloo group on the
+    one card (``python3 chip_smoke.py distributed-worker <rank> <port>
+    <dir>``): its half of the b32 batch, one step recorded, the median step
+    ms, and the median ms of an all-reduce of all the gradients (one flat
+    fp32 buffer on the card, through the host)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from mtg_card_image_segmentation_tpu_torch.parallel import distributed, make_mesh
+
+    rank = int(rank)
+    distributed.initialize(f"localhost:{port}", 2, rank, device="cpu")  # gloo
+    torch.cuda.set_device(0)
+    with np.load(Path(work) / "dist_inputs.npz") as z:
+        lo, hi = rank * DIST_B // 2, (rank + 1) * DIST_B // 2
+        imgs, masks = (torch.from_numpy(z[k][lo:hi]).cuda() for k in ("images", "masks"))
+    rec = dist_step(torch, imgs, masks, make_mesh(devices=["cuda:0"]), timed=5)
+    flat = torch.randn(sum(v.size for k, v in rec.items() if k.startswith("grad/")),
+                       device="cuda")
+    rec["allreduce_ms"] = median_ms(torch, lambda: torch.distributed.all_reduce(flat), 5, 1)
+    rec["allreduce_mb"] = flat.numel() * 4 / 1e6
+    np.savez(Path(work) / f"dist_rank{rank}.npz", **rec)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_distributed(torch, card, root: Path) -> dict:
+    """Data-parallel training and batch-split serving on the one card, the
+    seg config's fp32 train step at 320x240 b32 (cuDNN deterministic for
+    the comparison, restored after): (a) this process in an ``nccl`` group
+    of one rank, DDP and the global BatchNorm, against the plain step; (b)
+    two processes on the card in a ``gloo`` group (NCCL refuses two ranks on
+    one GPU), local b16 each, against the plain b32 step; each holds the
+    loss to 1e-6 relative and its gradients and BN statistics no further
+    from the float64 plain step than twice the plain fp32 step's
+    (``tests/test_torch_distributed.py``'s rule); (c) ``SegPredictor(mesh=
+    make_mesh())`` at b32 through kernels 1-3, its masks equal to the plain
+    predictor's. Returns (c)'s kernel launches."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+    from mtg_card_image_segmentation_tpu_torch.parallel import distributed, make_mesh
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+    from mtg_card_image_segmentation_tpu_torch.training.loop import (
+        float64_casts,
+        float64_copy,
+        make_train_step,
+    )
+    from mtg_card_image_segmentation_tpu_torch.utils.params import init_flax_like
+
+    t_start = time.perf_counter()
+    (h, w), b = DIST_HW, DIST_B
+    imgs, masks = card_batch(torch, b, h, w, SEED + 500)
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = dist_step(torch, imgs, masks, timed=5)
+        with float64_casts():
+            state = train_state(torch, DIST_SGD, "float32")
+            state.model = float64_copy(state.model).train()
+            state.optimizer = state.opt_def.build(state.model.parameters())
+            _, stats = make_train_step()(state, imgs.double(), masks)
+            exact = dist_record(state, stats)
+        del state
+        # (b) two gloo ranks on the card, in subprocesses
+        np.savez(root / "dist_inputs.npz", images=imgs.cpu().numpy(), masks=masks.cpu().numpy())
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "distributed-worker", str(r), str(port), str(root)],
+                                  cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(p.returncode for p in procs):
+            fail(f"distributed workers: {[p.returncode for p in procs]}: "
+                 f"{[o[-2000:] for o in outs]}")
+        ranks = [dict(np.load(root / f"dist_rank{r}.npz")) for r in range(2)]
+        # (a) this process, an nccl group of one rank
+        distributed.initialize(f"localhost:{_free_port()}", 1, 0, device="cuda")
+        try:
+            one = dist_step(torch, imgs, masks, make_mesh(), timed=5)
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = kept
+    rows, bad = {}, []
+    d_plain = {p: dist_distance(plain, exact, p) for p in ("grad/", "buffer/")}
+    for name, rec in (("nccl_1_rank", one), ("gloo_2_ranks", ranks[0])):
+        row = {"loss_rel": abs(float(rec["loss"]) - plain["loss"]) / abs(plain["loss"]),
+               "step_ms": float(rec["step_ms"]),
+               **{f"{p[:-1]}_distance_from_float64": dist_distance(rec, exact, p)
+                  for p in ("grad/", "buffer/")}}
+        rows[name] = row
+        if not row["loss_rel"] <= DIST_LOSS_REL:
+            bad.append(f"{name} loss {rec['loss']} vs plain {plain['loss']}")
+        for p in ("grad/", "buffer/"):
+            if not row[f"{p[:-1]}_distance_from_float64"] <= DIST_FP32_FACTOR * d_plain[p]:
+                bad.append(f"{name} {p[:-1]}: {row} against plain {d_plain}")
+    rows["gloo_2_ranks"].update({"allreduce_ms": float(ranks[0]["allreduce_ms"]),
+                                 "allreduce_mb": float(ranks[0]["allreduce_mb"])})
+    if any(not np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0]
+           if k.startswith(("grad/", "buffer/"))):
+        bad.append("the two gloo ranks hold different gradients or statistics")
+    # (c) batch-split serving on the one card's mesh
+    weights = init_flax_like(SEED)
+    u8, _ = card_images_u8(torch, b, h, w, SEED + 501)
+    mesh = make_mesh()
+    split, base = SegPredictor(*weights, h, w, mesh=mesh), SegPredictor(*weights, h, w)
+    want = base.predict(u8)
+    split.predict(u8)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = split.predict(u8)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    equal = bool(torch.equal(got, want))
+    if not equal:
+        bad.append("batch-split masks differ from the plain predictor's")
+    emit({"phase": "distributed", "size": [h, w], "batch": b,
+          "plain_step_ms": plain["step_ms"], "plain_distance_from_float64": d_plain,
+          "steps": rows, "loss_plain": plain["loss"], "loss_float64": exact["loss"],
+          "served": {"mesh_devices": [str(d) for d in mesh.devices], "masks_equal": equal,
+                     "launches": launches},
+          "tolerance": {"loss_rel": DIST_LOSS_REL, "fp32_factor": DIST_FP32_FACTOR},
+          "seconds": time.perf_counter() - t_start,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if bad:
+        fail(f"distributed: {bad}")
+    _check_seg_launches("distributed_served", launches)
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 # profiled kernel-name fragments -> class, first match wins
@@ -3790,8 +4190,9 @@ def main() -> int:
         ce_launches = phase_compress_export(torch, card, Path(tmp), ds_root)
         pose_train_launches = phase_pose_pipeline(
             torch, card, Path(tmp), Path(tmp) / "ckpt_synthetic" / "final_model",
-            Path(tmp) / "export_slim")
+            Path(tmp) / "export_slim", Path(tmp) / "export_dense")
         phase_yolo_pipeline(torch, card, Path(tmp))
+        dist_launches = phase_distributed(torch, card, Path(tmp))
 
     # per kernel: source, the TPU kernel it replaces, and its launches on
     # each main path that runs it, every path zeroed before and read after
@@ -3805,13 +4206,15 @@ def main() -> int:
     blocks_by_path = {"seg_predict_b128": sum(launches[n] for n in BLOCK_KERNELS),
                       "server": sum(server_launches[n] for n in BLOCK_KERNELS),
                       "train_cli_served": sum(cli_launches[n] for n in BLOCK_KERNELS),
-                      "compress_export_served": sum(ce_launches[n] for n in BLOCK_KERNELS)}
+                      "compress_export_served": sum(ce_launches[n] for n in BLOCK_KERNELS),
+                      "distributed_served": sum(dist_launches[n] for n in BLOCK_KERNELS)}
     meta = {
         "fused_mask_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:190",
                               {"seg_predict_b128": launches["fused_mask_decode"],
                                "server": server_launches["fused_mask_decode"],
                                "train_cli_served": cli_launches["fused_mask_decode"],
-                               "compress_export_served": ce_launches["fused_mask_decode"]}),
+                               "compress_export_served": ce_launches["fused_mask_decode"],
+                               "distributed_served": dist_launches["fused_mask_decode"]}),
         "fused_inverted_residual": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:515",
                                     blocks_by_path),
         "fused_tail_chain": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:393",
@@ -3850,4 +4253,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["distributed-worker"]:
+        sys.exit(distributed_worker(*sys.argv[2:]))
     sys.exit(main())

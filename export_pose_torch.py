@@ -9,11 +9,10 @@ Creates a deployment package from a trained pose checkpoint:
   pose_fp16.onnx     fp16 weights, fp32 I/O
   pose_int8.onnx     QDQ per-channel int8 weights (~4x smaller download)
   pose_dynamic.onnx  fp32 with a symbolic batch axis (gated at b1 AND b4)
+  pose.pt2           torch.export ExportedProgram + .json sidecar (<1e-5
+                     self-test), the counterpart of the JAX CLI's
+                     pose.stablehlo
   pose_info.json     IO contract + parity results
-
-The JAX CLI's pose.stablehlo is not written: its counterpart, a
-torch.export artifact, is not ported yet ("stablehlo": null in
-pose_info.json).
 
 Every ONNX file is run by the port's torch executor
 (export/onnx_torch_runner.py) on the device and gated against the source
@@ -68,6 +67,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from mtg_card_image_segmentation_tpu_torch.export.onnx_optimize import optimize
     from mtg_card_image_segmentation_tpu_torch.export.onnx_proto import independent_checks
     from mtg_card_image_segmentation_tpu_torch.export.quantize import convert_to_int8
+    from mtg_card_image_segmentation_tpu_torch.export.torch_export import NCHW, export_program
     from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
     from mtg_card_image_segmentation_tpu_torch.utils.params import count_parameters, hrnet_from_flax
     from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
@@ -128,6 +128,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"pose_dynamic.onnx ({os.path.getsize(dyn_path) / 1e6:.1f} MB, "
               f"symbolic batch axis)")
 
+    # torch.export, the second serialization format (export_pose.py writes
+    # pose.stablehlo): the unfolded fp32 model, NCHW in, NCHW heatmaps out
+    program_info = export_program(NCHW(model), (torch.zeros(1, 3, h, w, device=device),),
+                                  os.path.join(args.output_dir, "pose.pt2"))
+    print(f"pose.pt2 ({program_info['bytes'] / 1e6:.1f} MB, self-test "
+          f"max|diff|={program_info['self_test_max_diff']:.2e} "
+          f"{'PASS' if program_info['self_test_pass'] else 'FAIL'})")
+
     parity = {}
     if not args.skip_verify:
         parity = _gates(cfg, model, device, fp32_path, fp16_path, int8_path, dyn_path)
@@ -154,7 +162,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "parameters": count_parameters(params),
         "opset": 19,
         "graph_optimization": opt_stats,
-        "stablehlo": None,
+        "torch_export": program_info,
         "dynamic_batch_artifact": os.path.basename(dyn_path) if dyn_path else None,
         "checkpoint_epoch": meta.get("epoch"),
         "best_metric": meta.get("best_metric"),

@@ -8,13 +8,12 @@ Creates a deployment package from a trained checkpoint:
   model_fp16.onnx     fp16 weights, fp32 I/O (the demo's model)
   model_int8.onnx     QDQ per-channel int8 weights
   model_dynamic.onnx  fp32 with a symbolic batch axis (gated at b1 AND b4)
+  model.pt2           torch.export ExportedProgram + .json sidecar (<1e-5
+                      self-test), the counterpart of the JAX CLI's
+                      model.stablehlo
   params.npz          raw state-dict export
   model_info.json     IO contract + metrics + parity results
   README.md / inference_example.py
-
-The JAX CLI's model.stablehlo is not written: its counterpart, a
-torch.export artifact, is not ported yet ("stablehlo": null in
-model_info.json).
 
 Every ONNX file is run by the port's torch executor
 (export/onnx_torch_runner.py) on the device and gated against the source
@@ -50,6 +49,8 @@ MobileNetV3-Large, BatchNorm folded).
 - model_fp16.onnx     fp16 weights, fp32 I/O (use this in ONNX Runtime Web)
 - model_int8.onnx     int8 QDQ weights
 - model_dynamic.onnx  fp32 with a symbolic batch axis (server batching)
+- model.pt2           torch.export ExportedProgram (+ .json sidecar), fp32,
+                      batch 1: torch.export.load("model.pt2").module()(x)
 - params.npz          flat state-dict (numpy)
 - model_info.json     details + parity verification results
 
@@ -102,6 +103,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from mtg_card_image_segmentation_tpu_torch.export.onnx_optimize import optimize
     from mtg_card_image_segmentation_tpu_torch.export.onnx_proto import independent_checks
     from mtg_card_image_segmentation_tpu_torch.export.quantize import convert_to_int8
+    from mtg_card_image_segmentation_tpu_torch.export.torch_export import NCHW, export_program
     from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
     from mtg_card_image_segmentation_tpu_torch.utils.params import count_parameters, from_flax
     from mtg_card_image_segmentation_tpu_torch.utils.platform import no_tf32, resolve_device
@@ -196,6 +198,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"model_dynamic.onnx ({os.path.getsize(dyn_path) / 1e6:.1f} MB, "
               f"symbolic batch axis)")
 
+    # torch.export, the second serialization format (the reference ships
+    # TorchScript beside ONNX with its own <1e-5 gate, train/export.py:167-244;
+    # export_seg.py writes model.stablehlo): the unfolded fp32 model, NCHW
+    t0 = time.perf_counter()
+    program_info = export_program(NCHW(model), (torch.zeros(1, 3, h, w, device=device),),
+                                  os.path.join(args.output_dir, "model.pt2"))
+    seconds["model.pt2"] = time.perf_counter() - t0
+    print(f"model.pt2 ({program_info['bytes'] / 1e6:.1f} MB, self-test "
+          f"max|diff|={program_info['self_test_max_diff']:.2e} "
+          f"{'PASS' if program_info['self_test_pass'] else 'FAIL'})")
+
     # state-dict export (train/export.py:246-280): the same flat keys as
     # the JAX CLI ("params/backbone/stem/conv/kernel", ...)
     flat = ckpt_lib.flatten_tree({"params": params, "batch_stats": batch_stats})
@@ -221,7 +234,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "checkpoint_epoch": meta.get("epoch"),
         "best_metric": meta.get("best_metric"),
         "graph_optimization": opt_stats,
-        "stablehlo": None,
+        "torch_export": program_info,
         "dynamic_batch_artifact": os.path.basename(dyn_path) if dyn_path else None,
         "parity": parity,
         "device": str(device),

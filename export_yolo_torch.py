@@ -10,12 +10,11 @@ Creates a deployment package from a trained YOLO corner checkpoint:
   yolo_fp16.onnx     fp16 weights, fp32 I/O
   yolo_int8.onnx     QDQ per-channel int8 conv weights (~4x smaller download)
   yolo_dynamic.onnx  fp32 with a symbolic batch axis (gated at b1 AND b4)
+  yolo.pt2           torch.export ExportedProgram + .json sidecar (<1e-5
+                     self-test) with the same output0, the counterpart of
+                     the JAX CLI's yolo.stablehlo
   yolo_info.json     IO contract + parity results
   decode_yolo.py     the numpy client decode (export/yolo_client_decode.py)
-
-The JAX CLI's yolo.stablehlo is not written: its counterpart, a
-torch.export artifact, is not ported yet ("stablehlo": null in
-yolo_info.json).
 
 Output contract: "output0" (1, 17, A), rows [x1,y1,x2,y2,score,
 (kx,ky,kconf)x4] in input pixels (export/onnx_yolo.py). Every ONNX file is
@@ -75,6 +74,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from mtg_card_image_segmentation_tpu_torch.export.onnx_proto import independent_checks
     from mtg_card_image_segmentation_tpu_torch.export.onnx_yolo import export_yolo_model
     from mtg_card_image_segmentation_tpu_torch.export.quantize import convert_to_int8
+    from mtg_card_image_segmentation_tpu_torch.export.torch_export import (
+        YoloOutput0,
+        export_program,
+    )
     from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
     from mtg_card_image_segmentation_tpu_torch.utils.params import count_parameters, yolo_from_flax
     from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
@@ -121,13 +124,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
     else:
         del paths["dynamic"]
 
+    # fp32 compute for the parity reference (the deployed consumer is true
+    # fp32), the inference layout the graph is written from
+    model = yolo_from_flax(folded, None, dtype=torch.float32).to(device)
+    # torch.export, the second serialization format (export_yolo.py writes
+    # yolo.stablehlo): the folded fp32 model with the ONNX graph's output0
+    program_info = export_program(YoloOutput0(model),
+                                  (torch.zeros(1, 3, size, size, device=device),),
+                                  os.path.join(args.output_dir, "yolo.pt2"))
+    print(f"yolo.pt2 ({program_info['bytes'] / 1e6:.1f} MB, self-test "
+          f"max|diff|={program_info['self_test_max_diff']:.2e} "
+          f"{'PASS' if program_info['self_test_pass'] else 'FAIL'})")
+
     parity = {}
     if not args.skip_verify:
         from mtg_card_image_segmentation_tpu_torch.export import onnx_proto as op
 
-        # fp32 compute for the parity reference (the deployed consumer is
-        # true fp32), the inference layout the graph is written from
-        model = yolo_from_flax(folded, None, dtype=torch.float32).to(device)
         card, gt = int8_probe(size)
         parity = gates(model, {k: op.Model.load(p) for k, p in paths.items()}, device,
                        card, gt)
@@ -152,7 +164,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "parameters": count_parameters(params),
         "opset": 19,
         "graph_optimization": opt_stats,
-        "stablehlo": None,
+        "torch_export": program_info,
         "dynamic_batch_artifact": os.path.basename(paths["dynamic"]) if "dynamic" in paths
         else None,
         "checkpoint_epoch": meta.get("epoch"),

@@ -45,10 +45,11 @@ def _replace_nested(cfg: Any, overrides: dict) -> Any:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout, kept as data (the port trains on one device).
-    ``data`` = batch/data-parallel axis, ``space`` = optional spatial
-    partitioning of the H activation axis, ``model`` = optional channel
-    sharding.
+    """Device-mesh layout (``parallel/mesh.py::make_mesh``): ``data`` =
+    batch/data-parallel axis over the ``torch.distributed`` ranks, one
+    process per GPU; ``hosts`` = the hosts' share of it. ``space`` (spatial
+    partitioning of the H activation axis) and ``model`` (channel sharding)
+    are queued (ROADMAP Queue A): ``make_mesh`` raises for either above 1.
 
     ``data=-1`` means "all remaining devices".
     """

@@ -1,8 +1,14 @@
-"""Input pipelines on one device (counterpart of the JAX package's
-``data/pipeline.py``): a synthetic stream rendered and augmented on the
-device, its corner-keypoint variant with Gaussian heatmap targets, and a
-file stream decoded on the host and resized, augmented and normalized on
-the device.
+"""Input pipelines (counterpart of the JAX package's ``data/pipeline.py``):
+a synthetic stream rendered and augmented on the device, its
+corner-keypoint variant with Gaussian heatmap targets, and a file stream
+decoded on the host and resized, augmented and normalized on the device.
+
+Under a ``torch.distributed`` process group of more than one rank
+``batch_size`` is the global batch, and each rank makes its
+``local_batch_size`` share (``parallel/distributed.py``): the synthetic
+streams draw from a generator seeded from (seed, rank), and the file
+stream decodes the rank's ``process_shard`` of the file order, as the JAX
+pipelines do per process.
 
 Both replace the reference's torch DataLoader (train/dataset.py:208-260,
 4 CPU workers doing decode + augment per sample).
@@ -26,13 +32,25 @@ from mtg_card_image_segmentation_tpu_torch.data.synthetic import (
     synthetic_augmented_batch,
     synthetic_batch,
 )
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
+
+
+def rank_seed(seed: int) -> int:
+    """``seed`` on one process; under more than one rank a seed drawn from
+    (seed, rank), so that every rank draws its own stream."""
+    if distributed.process_count() == 1:
+        return seed
+    return int(np.random.SeedSequence([seed, distributed.process_index()])
+               .generate_state(1)[0])
 
 
 class SyntheticPipeline:
     """Infinite stream of rendered (+ augmented) normalized batches on the
-    device: (B,H,W,3) float32 images and (B,H,W) int32 masks. One
-    ``torch.Generator`` on the device, seeded from ``seed``, draws them all."""
+    device: (B,H,W,3) float32 images and (B,H,W) int32 masks, B the
+    rank's share of ``batch_size``. One ``torch.Generator`` on the device,
+    seeded from ``seed`` (and the rank: :func:`rank_seed`), draws them
+    all."""
 
     def __init__(self, batch_size: int, height: int, width: int,
                  augment: Optional[AugmentConfig] = AugmentConfig(), seed: int = 0,
@@ -44,7 +62,8 @@ class SyntheticPipeline:
         self.assets = assets
         self.real_prob = real_prob
         self.device = resolve_device(device)
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._local_bs = distributed.local_batch_size(batch_size)
+        self._gen = torch.Generator(device=self.device).manual_seed(rank_seed(seed))
 
     def next_batch(self) -> Tuple[torch.Tensor, torch.Tensor]:
         aug = self.augment
@@ -52,10 +71,10 @@ class SyntheticPipeline:
             # fused render + augment: the geometry composes into the render
             # coordinates (see synthetic.render_augmented_scene)
             sample = synthetic_augmented_batch(
-                self._gen, self.batch_size, self.height, self.width, NEGATIVE_PROB, aug,
+                self._gen, self._local_bs, self.height, self.width, NEGATIVE_PROB, aug,
                 assets=self.assets, real_prob=self.real_prob)
         else:
-            sample = synthetic_batch(self._gen, self.batch_size, self.height, self.width,
+            sample = synthetic_batch(self._gen, self._local_bs, self.height, self.width,
                                      NEGATIVE_PROB, self.assets, self.real_prob)
         return normalize_only(sample.image), sample.mask
 
@@ -87,7 +106,8 @@ class PoseSyntheticPipeline:
         self.sigma = sigma
         self.augment = augment
         self.device = resolve_device(device)
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._local_bs = distributed.local_batch_size(batch_size)
+        self._gen = torch.Generator(device=self.device).manual_seed(rank_seed(seed))
 
     def next_batch(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         from mtg_card_image_segmentation_tpu_torch.ops.heatmap import (
@@ -100,10 +120,10 @@ class PoseSyntheticPipeline:
             # fused render + augment, keypoint path: no elastic/grid, so the
             # corners stay exact; the affine may still push some out of view
             sample = synthetic_augmented_batch(
-                self._gen, self.batch_size, h, w, 0.0, aug, with_displacement=False,
+                self._gen, self._local_bs, h, w, 0.0, aug, with_displacement=False,
                 keep_in_frame=True)
         else:
-            sample = synthetic_batch(self._gen, self.batch_size, h, w, 0.0,
+            sample = synthetic_batch(self._gen, self._local_bs, h, w, 0.0,
                                      keep_in_frame=True)
         hm_coords = pixels_to_heatmap_coords(sample.corners, (h, w), self.heatmap_hw)
         targets = gaussian_heatmaps_batch(hm_coords, *self.heatmap_hw, self.sigma)
@@ -128,6 +148,12 @@ class FilePipeline:
     The prefetch thread only decodes. The copy to the device and all device
     work stay on the consuming thread: a fresh thread that touches the card
     pays for its own cuDNN/cuBLAS handles (45-250 ms on an H100 host).
+
+    Under more than one rank each rank decodes its ``process_shard`` of the
+    file order (shuffled by the same seed on every rank) in batches of its
+    share of ``batch_size``, and ``steps_per_epoch`` comes from the global
+    count, so that every rank joins the same collectives; this is a
+    training path and needs ``drop_last`` (the JAX pipeline's rule).
     """
 
     def __init__(self, dataset: CardSegmentationDataset, batch_size: int, height: int,
@@ -142,20 +168,27 @@ class FilePipeline:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.device = resolve_device(device)
+        self._local_bs = distributed.local_batch_size(batch_size)
+        if distributed.process_count() > 1 and not drop_last:
+            raise ValueError("a FilePipeline over several ranks needs drop_last")
         self._rng = np.random.default_rng(seed)
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(rank_seed(seed))
 
     @property
     def steps_per_epoch(self) -> int:
+        # from the global count, so that every rank agrees: each strided
+        # shard holds at least n // ranks >= steps * local batch items
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _host_batches(self):
         """One epoch of host batches: (B,H,W,3) uint8, (B,H,W) uint8, valid."""
         order = np.arange(len(self.dataset))
+        if distributed.process_count() > 1:
+            order = np.asarray(distributed.process_shard(list(order)))
         if self.shuffle:
             self._rng.shuffle(order)
-        bs = self.batch_size
+        bs = self._local_bs
         for b in range(self.steps_per_epoch):
             idxs = order[b * bs:(b + 1) * bs]
             imgs, masks = [], []

@@ -24,6 +24,7 @@ from mtg_card_image_segmentation_tpu_torch.evaluation.worstk import (
     fresh_failures_dir,
     merge_worst_k,
 )
+from mtg_card_image_segmentation_tpu_torch.parallel.distributed import all_reduce_sum
 from mtg_card_image_segmentation_tpu_torch.utils import plots as plots_lib
 
 
@@ -32,14 +33,16 @@ def make_analysis_step(model: torch.nn.Module, num_classes: int = 2):
     counts, pred masks, card-probability maps), all on the model's device.
     ``images`` are normalized NHWC floats, ``masks`` (B, H, W) ints.
     ``weights`` is a per-image 0/1 vector — padded rows of the last eval
-    batch carry 0 and contribute no confusion counts."""
+    batch carry 0 and contribute no confusion counts. Under a process group
+    the confusion counts are summed over the ranks; the per-image outputs
+    stay the rank's own."""
 
     @torch.inference_mode()
     def step(images: torch.Tensor, masks: torch.Tensor, weights: torch.Tensor):
         logits = model.eval()(images)
         pred = torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits.float(), dim=-1)
-        cm = metrics_lib.confusion_matrix(pred, masks, num_classes, weights)
+        cm = all_reduce_sum(metrics_lib.confusion_matrix(pred, masks, num_classes, weights))
         card_pred = (pred == 1).float()
         card_tgt = (masks == 1).float()
         inter = torch.sum(card_pred * card_tgt, dim=(1, 2))

@@ -9,7 +9,13 @@
 - ``combined_loss``: w_dice * dice + w_ce * ce;
 - ``heatmap_mse_loss``: plain MSE on keypoint heatmaps.
 
-None of them reads a value back to the host.
+None of them reads a value back to the host. Under a ``torch.distributed``
+process group the dice and the cross-entropy are taken over the global
+batch, as the JAX package's over a data-sharded batch: their sums are
+all-reduced over the ranks (with a backward) before the ratio, so every
+rank holds the global loss. The heatmap MSE is a local mean: over equal
+local batches, ``DistributedDataParallel``'s gradient average makes it
+the global one.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from mtg_card_image_segmentation_tpu_torch.parallel.distributed import all_reduce_sum, is_active
 
 
 def _one_hot(targets: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -33,8 +41,8 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     (B, H, W) int class ids."""
     probs = torch.softmax(logits.float(), dim=-1)
     one_hot = _one_hot(targets, logits.shape[-1])
-    intersection = torch.sum(probs * one_hot)
-    denom = torch.sum(probs) + torch.sum(one_hot)
+    intersection, denom = all_reduce_sum(torch.stack(
+        [torch.sum(probs * one_hot), torch.sum(probs) + torch.sum(one_hot)]))
     dice = (2.0 * intersection + smooth) / (denom + smooth)
     return 1.0 - dice
 
@@ -47,9 +55,13 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     idx = targets.long()[..., None]
     nll = -torch.gather(log_probs, -1, idx)[..., 0]
     if class_weights is None:
-        return torch.mean(nll)
+        if not is_active():
+            return torch.mean(nll)
+        total, n = all_reduce_sum(torch.stack([torch.sum(nll), nll.new_tensor(nll.numel())]))
+        return total / n
     w = class_weights.to(nll.device)[idx[..., 0]]
-    return torch.sum(nll * w) / torch.sum(w)
+    total, wsum = all_reduce_sum(torch.stack([torch.sum(nll * w), torch.sum(w)]))
+    return total / wsum
 
 
 def combined_loss(logits: torch.Tensor, targets: torch.Tensor,

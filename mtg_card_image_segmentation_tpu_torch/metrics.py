@@ -9,6 +9,11 @@ package's ``metrics.py``).
    dataset-level numbers evaluation reports.
 
 Corner metrics: accuracy at 3/5/6/10/20 px and mean/median distance.
+
+Under a ``torch.distributed`` process group the per-batch stats and the
+confusion counts of the eval steps are the global batch's: their sums are
+all-reduced over the ranks, so every rank reports what the JAX step
+reports over a data-sharded batch.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from mtg_card_image_segmentation_tpu_torch.parallel.distributed import all_reduce_sum, is_active
 
 _SMOOTH = 1e-6
 
@@ -31,8 +38,10 @@ def batch_iou(logits: torch.Tensor, targets: torch.Tensor,
               num_classes: int = 2) -> torch.Tensor:
     """Per-class smoothed IoU for one batch: (C,) tensor."""
     pred_oh, tgt_oh = _pred_target_one_hot(logits, targets, num_classes)
-    inter = torch.sum(pred_oh * tgt_oh, dim=(0, 1, 2))
-    union = torch.sum(pred_oh, dim=(0, 1, 2)) + torch.sum(tgt_oh, dim=(0, 1, 2)) - inter
+    inter, sums = all_reduce_sum(torch.stack([
+        torch.sum(pred_oh * tgt_oh, dim=(0, 1, 2)),
+        torch.sum(pred_oh, dim=(0, 1, 2)) + torch.sum(tgt_oh, dim=(0, 1, 2))]))
+    union = sums - inter
     return (inter + _SMOOTH) / (union + _SMOOTH)
 
 
@@ -40,14 +49,19 @@ def batch_dice(logits: torch.Tensor, targets: torch.Tensor,
                num_classes: int = 2) -> torch.Tensor:
     """Per-class smoothed dice for one batch: (C,) tensor."""
     pred_oh, tgt_oh = _pred_target_one_hot(logits, targets, num_classes)
-    inter = torch.sum(pred_oh * tgt_oh, dim=(0, 1, 2))
-    denom = torch.sum(pred_oh, dim=(0, 1, 2)) + torch.sum(tgt_oh, dim=(0, 1, 2))
+    inter, denom = all_reduce_sum(torch.stack([
+        torch.sum(pred_oh * tgt_oh, dim=(0, 1, 2)),
+        torch.sum(pred_oh, dim=(0, 1, 2)) + torch.sum(tgt_oh, dim=(0, 1, 2))]))
     return (2.0 * inter + _SMOOTH) / (denom + _SMOOTH)
 
 
 def batch_pixel_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     pred = torch.argmax(logits, dim=-1)
-    return torch.mean((pred == targets).float())
+    right = (pred == targets).float()
+    if not is_active():
+        return torch.mean(right)
+    hits, n = all_reduce_sum(torch.stack([right.sum(), right.new_tensor(right.numel())]))
+    return hits / n
 
 
 def segmentation_batch_stats(loss: torch.Tensor, logits: torch.Tensor,

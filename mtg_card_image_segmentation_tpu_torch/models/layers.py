@@ -17,7 +17,10 @@ Numerics follow the reference:
 Train mode (``module.train()``) normalizes with the batch's float32 mean
 and *biased* variance and updates the running statistics as Flax does,
 ``ra = m * ra + (1 - m) * batch`` with the biased variance
-(:func:`batch_norm_train`). Eval mode reads the running statistics.
+(:func:`batch_norm_train`). Under a ``torch.distributed`` process group the
+batch is the global one: its statistics come from sums all-reduced over the
+ranks, as the JAX package's mean over a data-sharded axis is a psum. Eval
+mode reads the running statistics.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99  # Flax's convention; torch's 0.01
@@ -73,7 +78,12 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     t) * ra``: that correction is made on the (C,) vectors, reading nothing
     back to the host. ``F.batch_norm`` is given copies of the buffers:
     autograd keeps the tensors it was given, which must not change before
-    the backward."""
+    the backward.
+
+    Under a process group the statistics are the global batch's
+    (:func:`_batch_norm_global`)."""
+    if distributed.is_active():
+        return _batch_norm_global(x, bn)
     n = x.numel() // x.shape[1]
     t = bn.momentum
     mean, var = bn.running_mean.clone(), bn.running_var.clone()
@@ -82,6 +92,59 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
         kept = (1.0 - t) * bn.running_var
         bn.running_mean.copy_(mean)
         bn.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+    return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a process group (what
+    ``nn.SyncBatchNorm`` computes, without its running-variance rule).
+
+    Forward: the mean from the all-reduced per-channel sum and element
+    count, then the biased variance from the all-reduced sum of squared
+    deviations from it (two passes, so that no E[x^2] - E[x]^2 cancels).
+    Backward: the closed form of the native BatchNorm backward, with its
+    two per-channel sums (of dy and of dy * x_hat) all-reduced, so that
+    every rank's activations receive the gradient of the statistics they
+    share; the weight's and the bias's gradients are the rank's own, which
+    DistributedDataParallel averages. Returns (y, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = (0, 2, 3)
+        total = distributed.all_reduce_sum(
+            torch.cat([x.sum(dims), x.new_full((1,), x.numel() // x.shape[1])]))
+        n = total[-1]
+        mean = total[:-1] / n
+        d = x - mean[None, :, None, None]
+        var = distributed.all_reduce_sum((d * d).sum(dims)) / n
+        invstd = torch.rsqrt(var + eps)
+        xhat = d * invstd[None, :, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight[None, :, None, None] + bias[None, :, None, None], mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        xhat, weight, invstd, n = ctx.saved_tensors
+        dims = (0, 2, 3)
+        g_bias, g_weight = dy.sum(dims), (dy * xhat).sum(dims)
+        sums = distributed.all_reduce_sum(torch.cat([g_bias, g_weight])) / n
+        mean_dy, mean_dy_xhat = sums.chunk(2)
+        dx = (weight * invstd)[None, :, None, None] * (
+            dy - mean_dy[None, :, None, None] - xhat * mean_dy_xhat[None, :, None, None])
+        return dx, g_weight, g_bias, None
+
+
+def _batch_norm_global(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """:class:`_GlobalBatchNorm` of ``x`` in its dtype (float64 in a float64
+    pass); the running statistics move by Flax's rule with the biased
+    variance, as on one process (``nn.SyncBatchNorm`` would move them with
+    the unbiased one)."""
+    y, mean, var = _GlobalBatchNorm.apply(x, bn.weight.to(x.dtype), bn.bias.to(x.dtype), bn.eps)
+    with torch.no_grad():
+        t = bn.momentum
+        bn.running_mean.mul_(1.0 - t).add_(t * mean.to(bn.running_mean.dtype))
+        bn.running_var.mul_(1.0 - t).add_(t * var.to(bn.running_var.dtype))
     return y
 
 

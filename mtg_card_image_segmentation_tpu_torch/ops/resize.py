@@ -66,7 +66,13 @@ def _device_coords(in_size: int, out_size: int, device: torch.device):
     on ``device``, made once: a copy from host memory on every call would
     wait for the device each time. They are made outside inference mode,
     so that a first call under ``torch.inference_mode`` (a predictor) does
-    not cache tensors that autograd (training) refuses to save."""
+    not cache tensors that autograd (training) refuses to save. A trace
+    (``torch.export``) takes :func:`_coords` instead, which caches nothing:
+    the tensors it makes are the trace's fakes."""
+    return _coords(in_size, out_size, device)
+
+
+def _coords(in_size: int, out_size: int, device: torch.device):
     lo, hi, w = half_pixel_coords(in_size, out_size)
     with torch.inference_mode(False):
         return (torch.from_numpy(lo.astype(np.int64)).to(device),
@@ -83,13 +89,14 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         x = x[None]
     _, in_h, in_w, _ = x.shape
     xf = x.float()
+    coords = _coords if torch.compiler.is_compiling() else _device_coords
     if in_h != out_h:
-        lo, hi, w = _device_coords(in_h, out_h, x.device)
+        lo, hi, w = coords(in_h, out_h, x.device)
         top = xf.index_select(1, lo)
         bot = xf.index_select(1, hi)
         xf = top + (bot - top) * w[None, :, None, None]
     if in_w != out_w:
-        lo, hi, w = _device_coords(in_w, out_w, x.device)
+        lo, hi, w = coords(in_w, out_w, x.device)
         left = xf.index_select(2, lo)
         right = xf.index_select(2, hi)
         xf = left + (right - left) * w[None, None, :, None]

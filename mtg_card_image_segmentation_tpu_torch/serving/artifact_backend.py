@@ -14,9 +14,10 @@ The ladder is the reference's feature, not a device fallback: a rung that
 fails to load or to run falls to the next one, and the reason is kept, so
 that a caller can see (and a smoke run can refuse) a fall.
 
-The JAX package's ``load_stablehlo`` runs its ``jax.export`` artifact; the
-port's counterpart, a ``torch.export`` artifact, is not written yet (the
-export CLIs write ``"stablehlo": null``).
+:func:`load_program` runs the port's ``torch.export`` artifact
+(``model.pt2``, ``pose.pt2``, ``yolo.pt2``; ``export/torch_export.py``), the
+counterpart of the JAX package's ``load_stablehlo``: one file, no ladder
+and no fallback.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ ONNX_LADDERS = {
     "yolo": ["yolo_int8.onnx", "yolo_fp16.onnx", "yolo.onnx",
              "yolo_dynamic.onnx"],
 }
+# the torch.export artifact of each family (the JAX package's STABLEHLO_NAMES)
+PROGRAM_NAMES = {"seg": "model.pt2", "hrnet": "pose.pt2", "yolo": "yolo.pt2"}
 
 
 def _onnx_candidates(path: str, family: str) -> List[str]:
@@ -95,3 +98,28 @@ def load_onnx(path: str, family: str, device=None) -> Tuple[Callable, str, List[
     raise RuntimeError(
         "every ONNX artifact in the ladder failed: " + "; ".join(reasons)
     )
+
+
+def load_program(path: str, family: str, device=None) -> Tuple[Callable, str]:
+    """``path`` is a ``.pt2`` file or a package directory (the family's
+    :data:`PROGRAM_NAMES` file in it). The program is moved to ``device``
+    (``None``: the CUDA card) by ``move_to_device_pass``, which also moves
+    the devices written into the graph's nodes. Returns (runner,
+    chosen_path): the runner maps float32 NCHW numpy or a tensor to the
+    output as numpy. A file that does not load raises."""
+    import torch
+    from torch.export.passes import move_to_device_pass
+
+    from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
+
+    device = resolve_device(device)
+    if os.path.isdir(path):
+        path = os.path.join(path, PROGRAM_NAMES[family])
+    program = move_to_device_pass(torch.export.load(path), device).module()
+
+    def fn(x):
+        x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x, np.float32))
+        with torch.no_grad():
+            return program(x.to(device, torch.float32)).cpu().numpy()
+
+    return fn, path

@@ -27,7 +27,7 @@ import torch
 from mtg_card_image_segmentation_tpu_torch.data.preprocess import normalize_only
 from mtg_card_image_segmentation_tpu_torch.ops import heatmap as hm_lib
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.preprocess import fused_normalize
-from mtg_card_image_segmentation_tpu_torch.serving.predictor import _to_images
+from mtg_card_image_segmentation_tpu_torch.serving.predictor import _to_images, split_predict
 from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
 from mtg_card_image_segmentation_tpu_torch.models.yolo12_pose import (
     decode_predictions,
@@ -49,14 +49,22 @@ class PosePredictor:
     card and raises if there is none; the CPU is used only with
     ``device="cpu"``, where the normalize kernel's plain version runs.
     ``use_kernels=False`` normalizes with stock ops, ``(x/255 - mean)/std``.
+    ``mesh``: batch-split serving over the mesh's local devices, one
+    replica per device (``serving/predictor.py::split_predict``), as
+    ``SegPredictor``'s.
     """
 
     def __init__(self, params, batch_stats, height: int, width: int,
                  heatmap_hw: Tuple[int, int] = (120, 160),
                  dtype: torch.dtype = torch.bfloat16, refine: bool = True,
                  threshold: float = 0.3, use_kernels: bool = True,
-                 device=None) -> None:
-        self.device = resolve_device(device)
+                 device=None, mesh=None) -> None:
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0] if mesh is not None else device)
+        self._replicas = [self] + [
+            PosePredictor(params, batch_stats, height, width, heatmap_hw, dtype, refine,
+                          threshold, use_kernels, d)
+            for d in (mesh.devices[1:] if mesh is not None else ())]
         self.height, self.width = height, width
         self.dtype = dtype
         self.refine = refine
@@ -96,7 +104,11 @@ class PosePredictor:
 
     def predict(self, images_u8) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) uint8 -> ((B, 4, 2) float32 xy input pixels, (B, 4)
-        float32 peak confidences), on the predictor's device."""
+        float32 peak confidences), on the predictor's device (split over
+        the mesh's devices when it has several)."""
+        if len(self._replicas) > 1:
+            return split_predict(self.mesh, self._replicas,
+                                 lambda r, x: r.decode(r.heatmaps(x)), images_u8)
         return self.decode(self.heatmaps(images_u8))
 
     def predict_valid(self, images_u8):

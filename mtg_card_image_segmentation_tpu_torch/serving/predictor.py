@@ -58,6 +58,7 @@ from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import (
 )
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.stem import apply_stem, prepare_stem
 from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_matrix, bilinear_resize
+from mtg_card_image_segmentation_tpu_torch.parallel.mesh import shard_batch
 from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
 from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
@@ -199,6 +200,22 @@ def _to_images(images_u8, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def split_predict(mesh, replicas: Sequence, call, images_u8):
+    """Batch-split serving (the JAX package's ``maybe_shard_predict``):
+    ``call(replica, slice)`` for each of the mesh's local devices on its
+    slice of the batch, in order, the results (a tensor or a tuple of them)
+    concatenated on the first device. Nothing is exchanged between the
+    devices: each image is computed whole on one. The batch must be a
+    multiple of the number of devices (``ValueError`` otherwise)."""
+    images = images_u8 if isinstance(images_u8, torch.Tensor) else torch.from_numpy(
+        np.asarray(images_u8))
+    outs = [call(r, part) for r, part in zip(replicas, shard_batch(mesh, images))]
+    dev = mesh.devices[0]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat([o[i].to(dev) for o in outs]) for i in range(len(outs[0])))
+    return torch.cat([o.to(dev) for o in outs])
+
+
 class SegPredictor:
     """predict(uint8 images) -> uint8 masks, on the card.
 
@@ -217,12 +234,19 @@ class SegPredictor:
     kernel path's head tail + decode and its stem to their hand-written
     kernels; ``fused_stem`` needs ``height`` and ``width`` to be multiples
     of 8. Both need ``use_kernels=True``.
+
+    ``mesh`` (``parallel/mesh.py``): batch-split serving over the mesh's
+    local devices, one replica of the folded weights per device, each
+    running the whole program (kernels included) on its slice
+    (:func:`split_predict`); the predictor's ``device`` is the mesh's first.
+    With one device it is the plain path.
     """
 
     def __init__(self, params, batch_stats, height: int, width: int,
                  use_kernels: bool = True, dtype: torch.dtype = torch.bfloat16,
                  device=None, fused_head: bool = False,
-                 fused_stem: bool = False, quantize: Optional[str] = None) -> None:
+                 fused_stem: bool = False, quantize: Optional[str] = None,
+                 mesh=None) -> None:
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if (fused_head or fused_stem) and not use_kernels:
@@ -230,7 +254,12 @@ class SegPredictor:
         if fused_stem and (height % 8 or width % 8):
             raise ValueError(
                 f"fused_stem needs height and width to be multiples of 8, got {height}x{width}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0] if mesh is not None else device)
+        self._replicas = [self] + [
+            SegPredictor(params, batch_stats, height, width, use_kernels, dtype, d, fused_head,
+                         fused_stem, quantize)
+            for d in (mesh.devices[1:] if mesh is not None else ())]
         self.height, self.width = height, width
         self.dtype = dtype
         self.use_kernels = use_kernels
@@ -269,10 +298,16 @@ class SegPredictor:
         params, batch_stats, _ = load_params(checkpoint_dir, name)
         return cls(params, batch_stats, height, width, **kw)
 
-    @torch.inference_mode()
     def predict(self, images_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 (at model resolution) -> (B, H, W) uint8
-        {0,1} masks, on the predictor's device."""
+        {0,1} masks, on the predictor's device (split over the mesh's
+        devices when it has several)."""
+        if len(self._replicas) > 1:
+            return split_predict(self.mesh, self._replicas, SegPredictor._predict, images_u8)
+        return self._predict(images_u8)
+
+    @torch.inference_mode()
+    def _predict(self, images_u8) -> torch.Tensor:
         images = _to_images(images_u8, self.device)
         if self.use_kernels:
             # normalization is folded into the stem weights; the centering

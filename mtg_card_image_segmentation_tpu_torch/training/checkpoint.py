@@ -12,6 +12,12 @@ resumed run continues exactly. Beside the directory sits the
 :func:`load_params` reads the parameters and statistics of either kind and
 never the optimizer's arrays. The JAX package writes Orbax checkpoints;
 ``tools/orbax_to_torch_checkpoint.py`` converts one into this format.
+
+Under a ``torch.distributed`` process group rank 0 alone writes, between
+barriers that every rank passes (the JAX package writes from one process,
+``training/checkpoint.py:60-80``); every rank reads. The trees are those of
+the unwrapped model, so a checkpoint written by a group loads in one
+process and the other way round.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed
 
 ARRAYS = "arrays.npz"
 _TREES = ("params", "batch_stats")
@@ -55,8 +63,11 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def _write(checkpoint_dir: str, name: str, trees: Dict[str, Any], meta: Dict[str, Any]) -> str:
-    """Write ``trees`` and the meta sidecar as checkpoint ``name``.
+def _write(checkpoint_dir: str, name: str, trees: Callable[[], Dict[str, Any]],
+           meta: Dict[str, Any]) -> str:
+    """Write ``trees()`` and the meta sidecar as checkpoint ``name``: on
+    rank 0 alone, between two barriers of every rank (the second also when
+    the write fails, so that no rank is left waiting).
 
     Crash-safe: the arrays go to a sibling ``<name>.staging`` directory and
     the existing checkpoint is replaced only after the new one is complete
@@ -64,6 +75,17 @@ def _write(checkpoint_dir: str, name: str, trees: Dict[str, Any], meta: Dict[str
     stale staging directory of an interrupted save is removed first, and a
     failed write is retried once from a clean slate."""
     path = os.path.abspath(os.path.join(checkpoint_dir, name))
+    distributed.barrier()
+    try:
+        if distributed.process_index() == 0:
+            _write_here(checkpoint_dir, name, path, trees(), meta)
+    finally:
+        distributed.barrier()
+    return path
+
+
+def _write_here(checkpoint_dir: str, name: str, path: str, trees: Dict[str, Any],
+                meta: Dict[str, Any]) -> None:
     staging = path + ".staging"
     os.makedirs(checkpoint_dir, exist_ok=True)
     flat = flatten_tree(trees)
@@ -83,7 +105,6 @@ def _write(checkpoint_dir: str, name: str, trees: Dict[str, Any], meta: Dict[str
     os.rename(staging, path)
     with open(os.path.join(checkpoint_dir, name + ".meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
-    return path
 
 
 def _meta(epoch: int, best_metric: Optional[float], history: Optional[dict],
@@ -109,7 +130,8 @@ def save_params(
     """Write checkpoint ``name`` (e.g. 'best_model', 'final_model') under
     ``checkpoint_dir`` with parameters and statistics only; returns its
     path (write-then-swap, see :func:`_write`)."""
-    return _write(checkpoint_dir, name, {"params": params, "batch_stats": batch_stats or {}},
+    return _write(checkpoint_dir, name,
+                  lambda: {"params": params, "batch_stats": batch_stats or {}},
                   _meta(epoch, best_metric, history, config))
 
 
@@ -127,9 +149,12 @@ def save_checkpoint(
     (e.g. 'best_model', 'checkpoint_epoch_10', 'final_model'); returns its
     path. Write-then-swap with stale-staging cleanup and one retry
     (:func:`_write`)."""
-    trees = dict(state.variables())
-    trees["opt_state"] = state.opt_state()
-    trees["step"] = np.asarray(state.step, np.int64)
+    def trees():
+        out = dict(state.variables())
+        out["opt_state"] = state.opt_state()
+        out["step"] = np.asarray(state.step, np.int64)
+        return out
+
     return _write(checkpoint_dir, name, trees, _meta(epoch, best_metric, history, config))
 
 

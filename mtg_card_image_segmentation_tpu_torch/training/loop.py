@@ -10,6 +10,14 @@
 - The pose steps train on the MSE of the corner heatmaps; the pose eval
   step also decodes the predicted and the target heatmaps and returns the
   per-corner pixel distances.
+- Under a ``torch.distributed`` process group (``parallel/distributed.py``)
+  the steps are data-parallel, as the JAX steps are over a data-sharded
+  mesh: each rank feeds its slice of the global batch, the train steps
+  call the model through ``DistributedDataParallel``
+  (``SegTrainState.train_module``), and the BatchNorm statistics, the
+  segmentation loss, the stats and the confusion counts are the global
+  batch's; the pose step's reported loss is the mean over ranks. ``mesh``
+  (``parallel/mesh.py``) must have been laid for the group's ranks.
 """
 
 from __future__ import annotations
@@ -22,21 +30,37 @@ import torch
 from mtg_card_image_segmentation_tpu_torch import losses as losses_lib
 from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
 from mtg_card_image_segmentation_tpu_torch.models.layers import FlaxBatchNorm2d
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed
 from mtg_card_image_segmentation_tpu_torch.training.state import SegTrainState
 
 
+def check_mesh(mesh) -> None:
+    """A ``mesh`` given to a step must have been laid for the process
+    group's ranks (the JAX steps take their sharding from it; here the
+    process group does the work, and the mesh must agree with it)."""
+    if mesh is not None and mesh.ranks != distributed.process_count():
+        raise ValueError(f"the mesh was laid for {mesh.ranks} ranks, the process group "
+                         f"has {distributed.process_count()}")
+
+
+def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """A detached scalar's mean over the ranks (itself on one process)."""
+    return distributed.all_reduce_sum(x.detach()) / distributed.process_count()
+
+
 def make_train_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
-                    num_classes: int = 2):
+                    num_classes: int = 2, mesh=None):
     """``step(state, images, masks) -> (state, stats)``: one update of
     ``state`` in place from NHWC float ``images`` and (B, H, W) int
     ``masks``. ``stats`` is a dict of device tensors for
     :class:`metrics.MetricsAccumulator`. The gradients stay in ``.grad``
     until the next step."""
+    check_mesh(mesh)
 
     def train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor):
-        model = state.model.train()
+        state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(images)
+        logits = state.train_module()(images)
         loss = losses_lib.combined_loss(logits, masks, dice_weight=dice_weight,
                                         ce_weight=ce_weight)
         loss.backward()
@@ -50,11 +74,12 @@ def make_train_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
 
 
 def make_eval_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
-                   num_classes: int = 2):
+                   num_classes: int = 2, mesh=None):
     """``step(state, images, masks, weights=None) -> (stats, confusion)``
     in eval mode (running statistics). ``weights`` (per-image 0/1) keep
     padded rows of the last eval batch out of the exact confusion counts;
     the smoothed per-batch stats stay whole-batch."""
+    check_mesh(mesh)
 
     @torch.no_grad()
     def eval_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor,
@@ -63,14 +88,14 @@ def make_eval_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
         loss = losses_lib.combined_loss(logits, masks, dice_weight=dice_weight,
                                         ce_weight=ce_weight)
         stats = metrics_lib.segmentation_batch_stats(loss, logits, masks, num_classes)
-        cm = metrics_lib.confusion_matrix(torch.argmax(logits, dim=-1), masks,
-                                          num_classes, weights)
+        cm = distributed.all_reduce_sum(metrics_lib.confusion_matrix(
+            torch.argmax(logits, dim=-1), masks, num_classes, weights))
         return stats, cm
 
     return eval_step
 
 
-def make_pose_train_step():
+def make_pose_train_step(mesh=None):
     """``step(state, images, targets) -> (state, stats)``: one update of
     ``state`` in place on the MSE between the model's (B, hm_h, hm_w, K)
     heatmaps and ``targets`` (CornerLoss semantics,
@@ -82,17 +107,19 @@ def make_pose_train_step():
     optax still updates them with a zero gradient (AdamW's weight decay
     moves them); so does this step, which gives them zero gradients where
     autograd left none."""
+    check_mesh(mesh)
 
     def train_step(state: SegTrainState, images: torch.Tensor, targets: torch.Tensor):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=False)
-        loss = losses_lib.heatmap_mse_loss(model(images), targets)
+        net = state.train_module(find_unused_parameters=True)
+        loss = losses_lib.heatmap_mse_loss(net(images), targets)
         loss.backward()
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         state.apply_gradients()
-        stats = {"loss": loss.detach().float(),
+        stats = {"loss": mean_over_ranks(loss).float(),
                  "count": torch.ones((), device=loss.device)}
         return state, stats
 

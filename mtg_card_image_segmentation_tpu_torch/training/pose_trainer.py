@@ -1,5 +1,7 @@
 """Corner-keypoint (pose) trainer (counterpart of the JAX package's
-``training/pose_trainer.py``), on one device.
+``training/pose_trainer.py``), on one device or data-parallel over a
+``torch.distributed`` process group (``training/trainer.py``); the
+validation loss and corner metrics are taken over every rank's batches.
 
 Behavioral spec: train-pose-estimation_custom/train.py:23-352 — AdamW,
 ReduceLROnPlateau(factor 0.5, patience 10) on the validation loss, a
@@ -19,8 +21,6 @@ resume its scale starts again at 1.0, as in the JAX trainer.
 
 from __future__ import annotations
 
-import json
-import os
 import time
 from typing import Dict, List, Optional
 
@@ -30,6 +30,7 @@ import torch
 from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
 from mtg_card_image_segmentation_tpu_torch.config import Config
 from mtg_card_image_segmentation_tpu_torch.models import registry
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed
 from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
 from mtg_card_image_segmentation_tpu_torch.training.loop import (
     EarlyStopping,
@@ -39,7 +40,11 @@ from mtg_card_image_segmentation_tpu_torch.training.loop import (
 )
 from mtg_card_image_segmentation_tpu_torch.training.optim import OptimizerDef
 from mtg_card_image_segmentation_tpu_torch.training.state import create_seg_state
-from mtg_card_image_segmentation_tpu_torch.training.trainer import REFERENCE_TRAIN_IMAGES
+from mtg_card_image_segmentation_tpu_torch.training.trainer import (
+    REFERENCE_TRAIN_IMAGES,
+    mesh_of,
+    write_history,
+)
 from mtg_card_image_segmentation_tpu_torch.utils.logging import setup_logger
 from mtg_card_image_segmentation_tpu_torch.utils.params import init_flax_defaults
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
@@ -75,11 +80,13 @@ class ReduceLROnPlateau:
 class PoseTrainer:
     """``PoseTrainer(cfg)`` trains ``cfg.pose`` (HRNet-W18-small) on the
     CUDA card (``device="cpu"`` on the host). The model starts from Flax's
-    default initial values drawn from ``cfg.train.seed``."""
+    default initial values drawn from ``cfg.train.seed``; ``mesh`` as in
+    ``SegTrainer``."""
 
-    def __init__(self, cfg: Config, device=None) -> None:
+    def __init__(self, cfg: Config, device=None, mesh=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_of(cfg, self.device)
         self.log = setup_logger(log_dir=cfg.train.log_dir)
         self.steps_per_epoch = cfg.train.steps_per_epoch or max(
             1, REFERENCE_TRAIN_IMAGES // cfg.data.batch_size
@@ -93,7 +100,7 @@ class PoseTrainer:
                                None, lambda count: hyperparams["learning_rate"])
         self.state = create_seg_state(model, opt_def, self.device)
         self.state.hyperparams = hyperparams
-        self.train_step = make_pose_train_step()
+        self.train_step = make_pose_train_step(mesh=self.mesh)
         self.eval_step = make_pose_eval_step((cfg.pose.input_height, cfg.pose.input_width))
         self.history: Dict[str, List[float]] = {}
         self.start_epoch = 0
@@ -134,8 +141,10 @@ class PoseTrainer:
             stats, distances = self.eval_step(self.state, images, targets)
             losses.append(stats["loss"])
             all_d.append(distances)
-        m = {k: float(v) for k, v in metrics_lib.corner_metrics(torch.cat(all_d)).items()}
-        m["loss"] = float(np.mean([float(x) for x in losses]))
+        all_d = distributed.all_gather_cat(torch.cat(all_d))
+        m = {k: float(v) for k, v in metrics_lib.corner_metrics(all_d).items()}
+        m["loss"] = float(np.mean([float(x) for x in
+                                   distributed.all_gather_cat(torch.stack(losses))]))
         return m
 
     def train(self, train_iter, make_val_batches, make_recal_batches) -> Dict[str, List[float]]:
@@ -204,8 +213,7 @@ class PoseTrainer:
             ckpt_dir, "final_model", self.state, cfg.train.num_epochs - 1,
             self.best_metric, self.history, cfg.to_dict(),
         )
-        with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
-            json.dump(self.history, f, indent=2)
+        write_history(ckpt_dir, self.history)
         self.log.info(
             f"pose training finished in {(time.time() - t_start) / 3600:.2f}h"
         )

@@ -1,6 +1,10 @@
 """Train state (counterpart of the JAX package's ``training/state.py``): the
 model (parameters and BatchNorm statistics), the optimizer and the step
 count, with views in the Flax layout for checkpoints and the weight bridge.
+Under a ``torch.distributed`` process group the train steps call the model
+through ``DistributedDataParallel`` (:meth:`SegTrainState.train_module`);
+the state itself, its checkpoints and its Flax views hold the unwrapped
+model.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed
 from mtg_card_image_segmentation_tpu_torch.training.optim import OptimizerDef
 from mtg_card_image_segmentation_tpu_torch.utils.params import (
     flax_to_state_dict,
@@ -40,6 +45,25 @@ class SegTrainState:
         self.optimizer = optimizer or opt_def.build(model.parameters())
         self.step = step
         self.hyperparams = hyperparams
+        self._ddp: Optional[torch.nn.Module] = None
+
+    def train_module(self, entry: str = "forward", find_unused_parameters: bool = False):
+        """What a train step calls: the model's ``entry`` method; under a
+        process group, the same through ``DistributedDataParallel``, made
+        once (``broadcast_buffers=False``: the global-batch BatchNorm keeps
+        the statistics equal on every rank, and rank 0's would overwrite
+        them otherwise). ``find_unused_parameters`` for a model whose loss
+        leaves some parameters without a gradient (HRNet's last fusion)."""
+        if not distributed.is_active():
+            return getattr(self.model, entry)
+        if self._ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            dev = next(self.model.parameters()).device
+            self._ddp = DistributedDataParallel(
+                _Entry(self.model, entry), device_ids=[dev] if dev.type == "cuda" else None,
+                broadcast_buffers=False, find_unused_parameters=find_unused_parameters)
+        return self._ddp
 
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients in ``.grad``."""
@@ -95,6 +119,19 @@ class SegTrainState:
                 st[slot] = sd[n].to(device=p.device, dtype=p.dtype)
                 if self.opt_def.name == "adamw":
                     st["step"] = torch.tensor(float(self.step), dtype=torch.float32)
+
+
+class _Entry(torch.nn.Module):
+    """``model.<entry>`` as a module's forward, for DDP, which hooks only
+    ``forward`` (YOLO trains on ``levels``)."""
+
+    def __init__(self, model: torch.nn.Module, entry: str) -> None:
+        super().__init__()
+        self.model = model
+        self.entry = entry
+
+    def forward(self, *args):
+        return getattr(self.model, self.entry)(*args)
 
 
 def create_seg_state(model: torch.nn.Module, opt_def: OptimizerDef,

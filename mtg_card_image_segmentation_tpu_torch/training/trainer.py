@@ -1,5 +1,7 @@
 """Segmentation trainer, the epoch loop (counterpart of the JAX package's
-``training/trainer.py``), on one device.
+``training/trainer.py``), on one device or data-parallel over a
+``torch.distributed`` process group (one process per GPU, each feeding its
+slice of the global batch; ``training/loop.py``).
 
 Per epoch: ``steps_per_epoch`` train steps with progress and ETA at the log
 cadence (the only host reads of the loop), then, every
@@ -7,7 +9,10 @@ cadence (the only host reads of the loop), then, every
 the history, best checkpoint and early stopping on the configured metric;
 periodic checkpoints every ``save_every_epochs``; at the end the final
 checkpoint and ``history.json``. ``resume`` restores a checkpoint's whole
-train state and the run's history. Optional ``wandb`` logging.
+train state and the run's history. Optional ``wandb`` logging. Under a
+process group the validation metrics are global, so every rank takes the
+same early-stopping decisions, and rank 0 alone writes the checkpoints
+and the history.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
 from mtg_card_image_segmentation_tpu_torch.config import Config
 from mtg_card_image_segmentation_tpu_torch.models import registry
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed, make_mesh
 from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
 from mtg_card_image_segmentation_tpu_torch.training.loop import (
     EarlyStopping,
@@ -39,14 +45,31 @@ from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 REFERENCE_TRAIN_IMAGES = 8800  # the reference dataset's scale
 
 
+def mesh_of(cfg: Config, device):
+    """``cfg.mesh`` laid over the process group's ranks, ``device`` each."""
+    m = cfg.mesh
+    return make_mesh(data=m.data, space=m.space, model=m.model, hosts=m.hosts,
+                     devices=[device])
+
+
+def write_history(ckpt_dir: str, history: dict) -> None:
+    """``history.json`` beside the checkpoints, from rank 0 only."""
+    if distributed.process_index() == 0:
+        with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=2)
+
+
 class SegTrainer:
     """``SegTrainer(cfg)`` trains ``cfg.model`` on the CUDA card
     (``device="cpu"`` on the host). The model starts from Flax's default
-    initial values drawn from ``cfg.train.seed``."""
+    initial values drawn from ``cfg.train.seed``. ``mesh``
+    (``parallel/mesh.py``) defaults to ``cfg.mesh`` over the process
+    group's ranks, one device each."""
 
-    def __init__(self, cfg: Config, device=None, lr_scale: float = 1.0) -> None:
+    def __init__(self, cfg: Config, device=None, lr_scale: float = 1.0, mesh=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_of(cfg, self.device)
         self.log = setup_logger(log_dir=cfg.train.log_dir)
         self.steps_per_epoch = cfg.train.steps_per_epoch or max(
             1, REFERENCE_TRAIN_IMAGES // cfg.data.batch_size
@@ -60,11 +83,13 @@ class SegTrainer:
             dice_weight=cfg.train.dice_weight,
             ce_weight=cfg.train.ce_weight,
             num_classes=cfg.model.num_classes,
+            mesh=self.mesh,
         )
         self.eval_step = make_eval_step(
             dice_weight=cfg.train.dice_weight,
             ce_weight=cfg.train.ce_weight,
             num_classes=cfg.model.num_classes,
+            mesh=self.mesh,
         )
         self.history: Dict[str, List[float]] = {}
         self.start_epoch = 0
@@ -207,8 +232,7 @@ class SegTrainer:
             ckpt_dir, "final_model", self.state,
             cfg.train.num_epochs - 1, self.best_metric, self.history, cfg.to_dict(),
         )
-        with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
-            json.dump(self.history, f, indent=2)
+        write_history(ckpt_dir, self.history)
         self.log.info(
             f"training finished in {(time.time() - t_start) / 3600:.2f}h; "
             f"best {cfg.train.early_stopping_metric}={self.best_metric}"

@@ -38,6 +38,7 @@ from mtg_card_image_segmentation_tpu_torch.models.yolo12_pose import (
     STRIDES,
     decode_predictions,
 )
+from mtg_card_image_segmentation_tpu_torch.training.loop import check_mesh, mean_over_ranks
 from mtg_card_image_segmentation_tpu_torch.training.state import SegTrainState
 
 TOP_K = 10
@@ -204,18 +205,25 @@ def yolo_grads_float64(model: torch.nn.Module, images: torch.Tensor, corners: to
                          images, corners)
 
 
-def make_yolo_train_step(num_keypoints: int = 4):
+def make_yolo_train_step(num_keypoints: int = 4, mesh=None):
     """``step(state, images, corners) -> (state, parts)``: one update of
     ``state`` in place from NHWC [0, 1] ``images`` and (B, 4, 2) corner
     pixels, the model (``YOLO12Pose``) in train mode on its raw level
-    outputs. ``parts`` holds the detached loss terms, on the device."""
+    outputs. ``parts`` holds the detached loss terms, on the device.
+
+    Under a process group (``training/loop.py``) each rank feeds its slice
+    of the global batch: the loss is a mean of per-sample terms, so over
+    equal local batches DDP's gradient average is the global gradient;
+    ``parts`` are the means over the ranks."""
+    check_mesh(mesh)
 
     def train_step(state: SegTrainState, images: torch.Tensor, corners: torch.Tensor):
-        model = state.model.train()
+        state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, parts = yolo_pose_loss(model.levels(images), corners, num_keypoints)
+        loss, parts = yolo_pose_loss(state.train_module("levels")(images), corners,
+                                     num_keypoints)
         loss.backward()
         state.apply_gradients()
-        return state, {k: v.detach() for k, v in parts.items()}
+        return state, {k: mean_over_ranks(v) for k, v in parts.items()}
 
     return train_step

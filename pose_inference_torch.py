@@ -12,6 +12,7 @@ original frame, visualization, timing). Runs on the CUDA card;
   python pose_inference_torch.py --checkpoint runs/yolo/checkpoints/best_model \\
       --family yolo --synthetic 4
   python pose_inference_torch.py --onnx exported_models_yolo --family yolo --synthetic 2
+  python pose_inference_torch.py --pt2 exported_models_yolo --family yolo --synthetic 2
 
 --family hrnet (the default) runs an HRNet checkpoint or, with --onnx, a
 shipped HRNet artifact through the port's torch ONNX executor; a package
@@ -19,9 +20,11 @@ DIRECTORY walks the int8 -> fp16 -> fp32 -> dynamic ladder, and every rung
 that falls is printed with its reason. --family yolo runs a YOLO12n-pose
 checkpoint through ``YoloCornerPredictor`` or, with --onnx, a shipped YOLO
 artifact (the ``yolo`` ladder) whose output0 goes through the numpy client
-decode (export/yolo_client_decode.py), as the JAX CLI does. Not ported yet:
-the JAX CLI's --stablehlo, which waits for the port's torch.export artifact
-(Queue A item 8).
+decode (export/yolo_client_decode.py), as the JAX CLI does. --pt2 PATH
+runs the family's torch.export artifact (a .pt2 file, or pose.pt2 /
+yolo.pt2 in a package directory), the counterpart of the JAX CLI's
+--stablehlo, with no ladder; the YOLO one's output0 goes through the same
+client decode.
 
 --synthetic N renders N scenes from seeds 123 + i with the port's renderer
 on the host (a torch.Generator): the same images on every device, but not
@@ -47,6 +50,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         help="run a shipped .onnx artifact (or walk a package "
                              "directory's int8->fp16->fp32->dynamic ladder) instead of "
                              "a checkpoint")
+    parser.add_argument("--pt2", default=None, metavar="PATH",
+                        help="run a torch.export artifact (.pt2 file or package directory)")
     parser.add_argument("--image", type=str, default=None, help="image file to run on")
     parser.add_argument("--synthetic", type=int, default=0, help="run on N synthetic samples")
     parser.add_argument("--config", type=str, default=None)
@@ -60,8 +65,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--visualize", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if (args.checkpoint is None) == (args.onnx is None):
-        parser.error("give exactly one of --checkpoint / --onnx")
+    if sum(a is not None for a in (args.checkpoint, args.onnx, args.pt2)) != 1:
+        parser.error("give exactly one of --checkpoint / --onnx / --pt2")
     if args.family == "yolo" and (args.config or args.set):
         parser.error("--family yolo is configured by --imgsz/--threshold only; "
                      "--config/--set apply to the hrnet family")
@@ -88,16 +93,27 @@ def main(argv: Optional[List[str]] = None) -> dict:
         return bilinear_resize(x, h, w)
 
     reasons: List[str] = []
-    if args.family == "yolo" and args.onnx:
+
+    def load_artifact(family):
+        from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
+
+        if args.pt2:
+            runner, source = artifact_backend.load_program(args.pt2, family, device)
+            print(f"loaded artifact {source} ({family})")
+            return runner, source
+        runner, source, fell = artifact_backend.load_onnx(args.onnx, family, device)
+        reasons.extend(fell)
+        print(f"loaded artifact {source} ({family})")
+        print(f"ladder fell past: {json.dumps(fell)}")
+        return runner, source
+
+    if args.family == "yolo" and args.checkpoint is None:
         from mtg_card_image_segmentation_tpu_torch.export.yolo_client_decode import (
             decode as client_decode,
         )
-        from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
 
         h = w = args.imgsz
-        runner, source, reasons = artifact_backend.load_onnx(args.onnx, "yolo", device)
-        print(f"loaded artifact {source} (yolo)")
-        print(f"ladder fell past: {json.dumps(reasons)}")
+        runner, source = load_artifact("yolo")
 
         def infer(images01):
             # stretch-resize to the square input, the joint client decode of
@@ -135,12 +151,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     else:
         h, w = cfg.pose.input_height, cfg.pose.input_width
-        if args.onnx:
-            from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
-
-            runner, source, reasons = artifact_backend.load_onnx(args.onnx, "hrnet", device)
-            print(f"loaded artifact {source} (hrnet)")
-            print(f"ladder fell past: {json.dumps(reasons)}")
+        if args.checkpoint is None:
+            runner, source = load_artifact("hrnet")
 
             def heatmaps_of(x):
                 out = runner(x.permute(0, 3, 1, 2).cpu().numpy())  # (B, K, hm_h, hm_w)

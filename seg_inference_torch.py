@@ -10,11 +10,13 @@ the host.
   python seg_inference_torch.py --checkpoint runs/seg/checkpoints/best_model --synthetic 2
   python seg_inference_torch.py --onnx runs/seg/exported --synthetic 2
   python seg_inference_torch.py --onnx runs/seg/exported/model_fp16.onnx --image card.jpg
+  python seg_inference_torch.py --pt2 runs/seg/exported --synthetic 2
 
 --onnx PATH runs through the port's torch ONNX executor; a package
 DIRECTORY walks the int8 -> fp16 -> fp32 -> dynamic ladder, and every rung
-that falls is printed with its reason. The JAX CLI's --stablehlo waits for
-the port's torch.export artifact, which is not written yet. Output per
+that falls is printed with its reason. --pt2 PATH runs the torch.export
+artifact (a .pt2 file, or model.pt2 in a package directory), the
+counterpart of the JAX CLI's --stablehlo; it has no ladder. Output per
 sample (one JSON line): card pixel fraction, mean card confidence,
 inference time; --visualize writes the reference demo's cyan-overlay
 rendering (demo/src/image-utils.js:190-227 behavior) as PNG (matplotlib).
@@ -40,6 +42,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--checkpoint", default=None)
     parser.add_argument("--onnx", default=None, metavar="PATH")
+    parser.add_argument("--pt2", default=None, metavar="PATH",
+                        help="run a torch.export artifact (.pt2 file or package directory)")
     parser.add_argument("--image", type=str, default=None)
     parser.add_argument("--synthetic", type=int, default=0)
     parser.add_argument("--set", nargs="*", default=[], metavar="a.b=v")
@@ -47,8 +51,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--visualize", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if (args.checkpoint is None) == (args.onnx is None):
-        parser.error("give exactly one of --checkpoint / --onnx")
+    if sum(a is not None for a in (args.checkpoint, args.onnx, args.pt2)) != 1:
+        parser.error("give exactly one of --checkpoint / --onnx / --pt2")
     if not args.image and args.synthetic <= 0:
         parser.error("give --image or --synthetic N")
 
@@ -74,12 +78,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
         return normalize_only(bilinear_resize(x, h, w))
 
     reasons: List[str] = []
-    if args.onnx:
+    if args.onnx or args.pt2:
         from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
 
-        runner, source, reasons = artifact_backend.load_onnx(args.onnx, "seg", device)
+        if args.onnx:
+            runner, source, reasons = artifact_backend.load_onnx(args.onnx, "seg", device)
+        else:
+            runner, source = artifact_backend.load_program(args.pt2, "seg", device)
         print(f"loaded artifact {source}")
-        print(f"ladder fell past: {json.dumps(reasons)}")
+        if args.onnx:
+            print(f"ladder fell past: {json.dumps(reasons)}")
 
         def infer(images01):
             # exported IO contract: (B, 3, H, W) fp32 ImageNet-normalized

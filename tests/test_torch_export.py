@@ -248,7 +248,8 @@ def test_runner_defaults_to_the_card(graphs, monkeypatch):
 
 
 FILES = {"model.onnx", "model_fp16.onnx", "model_int8.onnx", "model_dynamic.onnx",
-         "params.npz", "model_info.json", "README.md", "inference_example.py"}
+         "model.pt2", "model.pt2.json", "params.npz", "model_info.json", "README.md",
+         "inference_example.py"}
 
 
 def _chip_smoke():
@@ -287,8 +288,11 @@ def test_export_cli_on_cpu(weights, tmp_path, capsys):
         assert par["fp32_max_abs_diff"] < FP32_GATE
         assert all(r["pass"] for r in par["dynamic_batch"].values())
         assert par.get("protoc_decode_pass", True)
-        assert info["stablehlo"] is None and info["device"] == "cpu"
-        assert "stablehlo" not in (out / "README.md").read_text()
+        program = info["torch_export"]
+        assert program["self_test_pass"] and program["self_test_max_diff"] < 1e-5
+        assert program == json.loads((out / "model.pt2.json").read_text())
+        assert program["bytes"] == (out / "model.pt2").stat().st_size
+        assert info["device"] == "cpu" and "model.pt2" in (out / "README.md").read_text()
     assert info["slimmed_expansions"][12] == 471
     assert info["parameters"] == 3_358_648
     ref = jax_onnx.export_seg_model(jax.tree.map(np.asarray, jax_fold(*weights)), (H, W))

@@ -6,7 +6,9 @@ against ``seg_inference.py`` and ``pose_inference.py`` on the same
 ``--image`` file (an Orbax checkpoint of seeded weights for the JAX CLIs,
 converted by ``tools/orbax_to_torch_checkpoint.py`` for the port's, and
 the same ONNX package for both; YOLO12n-pose from its ONNX package through
-the client decode), and the new CLIs end to end with ``--device cpu``.
+the client decode), ``--pt2`` (the ``torch.export`` artifact in the same
+packages) against ``--checkpoint`` and, for YOLO, against the fp32 ONNX
+graph, and the new CLIs end to end with ``--device cpu``.
 """
 
 import json
@@ -37,12 +39,20 @@ from mtg_card_image_segmentation_tpu_torch.export.onnx_export import (
 from mtg_card_image_segmentation_tpu_torch.export.onnx_optimize import optimize
 from mtg_card_image_segmentation_tpu_torch.export.onnx_yolo import export_yolo_model
 from mtg_card_image_segmentation_tpu_torch.export.quantize import convert_to_int8
+from mtg_card_image_segmentation_tpu_torch.export.torch_export import (
+    NCHW,
+    YoloOutput0,
+    export_program,
+)
 from mtg_card_image_segmentation_tpu_torch.serving import artifact_backend
 from mtg_card_image_segmentation_tpu_torch.training.checkpoint import save_params
 from mtg_card_image_segmentation_tpu_torch.utils.params import (
+    from_flax,
+    hrnet_from_flax,
     init_flax_like,
     init_hrnet_flax_like,
     init_yolo_flax_like,
+    yolo_from_flax,
 )
 
 torch.set_num_threads(2)
@@ -95,6 +105,16 @@ def work(tmp_path_factory):
                                                           POSE_HW, HM)),
         "yolo": _package(tmp, "yolo", export_yolo_model(fold_batch_norm(*init_yolo_flax_like(0)),
                                                         imgsz=YOLO_S))}
+    # each package's torch.export artifact, from the same trees, in float32
+    programs = {"seg": (NCHW(from_flax(*trees["seg"], dtype=torch.float32)), SEG_HW),
+                "hrnet": (NCHW(hrnet_from_flax(*trees["hrnet"], HM, dtype=torch.float32)),
+                          POSE_HW),
+                "yolo": (YoloOutput0(yolo_from_flax(fold_batch_norm(*init_yolo_flax_like(0)),
+                                                    None, dtype=torch.float32)),
+                         (YOLO_S, YOLO_S))}
+    for family, (module, hw) in programs.items():
+        export_program(module, (torch.zeros(1, 3, *hw),),
+                       str(packages[family] / artifact_backend.PROGRAM_NAMES[family]))
     rng = np.random.default_rng(0)
     base = torch.from_numpy(rng.random((1, 3, 9, 6)).astype(np.float32))
     img = torch.nn.functional.interpolate(base, size=(100, 72), mode="bilinear",
@@ -237,6 +257,52 @@ def test_yolo_onnx_inference_matches_the_jax_cli(work, tmp_path, monkeypatch):
     np.testing.assert_allclose(g["confidences"], w["confidences"], rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("family", ["seg", "hrnet"])
+def test_pt2_gives_the_checkpoints_float32_output(work, family, tmp_path):
+    """--pt2 on the package against --checkpoint on the same trees, float32,
+    the same --image: the seg card fraction equal and its confidence within
+    1e-6 (and the program's mask equal to the model's at every pixel of a
+    probe), the HRNet corners within 1e-3 px (both round to 0.01 px)."""
+    tmp, mod = work["tmp"], {"seg": seg_inference_torch, "hrnet": pose_inference_torch}[family]
+    sets = SEG_SET if family == "seg" else POSE_SET
+    runs = {src: mod.main([*args, "--image", work["image"], "--device", "cpu",
+                           "--output-dir", str(tmp_path / src), *sets])
+            for src, args in (("pt2", ["--pt2", str(work["packages"][family])]),
+                              ("checkpoint", ["--checkpoint", str(tmp / "torch" / family)]))}
+    assert runs["pt2"]["source"].endswith(artifact_backend.PROGRAM_NAMES[family])
+    assert runs["pt2"]["ladder_fell_past"] == []
+    (g,), (w,) = runs["pt2"]["results"], runs["checkpoint"]["results"]
+    if family == "hrnet":
+        np.testing.assert_allclose(g["corners_xy"], w["corners_xy"], rtol=0, atol=1e-3)
+        assert g["valid"] == w["valid"]
+        return
+    assert g["card_pixel_fraction"] == w["card_pixel_fraction"]
+    assert 0.0 < w["card_pixel_fraction"] < 1.0
+    assert abs(g["mean_card_confidence"] - w["mean_card_confidence"]) <= 1e-6
+    runner, _ = artifact_backend.load_program(str(work["packages"]["seg"]), "seg", "cpu")
+    x = np.random.default_rng(4).standard_normal((1, 3, *SEG_HW)).astype(np.float32)
+    model = from_flax(*init_flax_like(0), dtype=torch.float32)
+    with torch.no_grad():
+        want = model(torch.from_numpy(x.transpose(0, 2, 3, 1))).numpy().argmax(-1)
+    assert (runner(x).argmax(1) == want).all()
+
+
+def test_yolo_pt2_matches_its_fp32_onnx_graph(work, tmp_path):
+    """--family yolo --pt2 and --onnx on the fp32 graph of the same package:
+    the same client decode of the same output0, corners within 1e-3 px."""
+    pkg = work["packages"]["yolo"]
+    common = ["--family", "yolo", "--imgsz", str(YOLO_S), "--image", work["image"],
+              "--device", "cpu"]
+    got = pose_inference_torch.main(["--pt2", str(pkg), *common, "--output-dir",
+                                     str(tmp_path / "pt2")])
+    want = pose_inference_torch.main(["--onnx", str(pkg / "yolo.onnx"), *common,
+                                      "--output-dir", str(tmp_path / "onnx")])
+    assert got["source"].endswith("yolo.pt2")
+    (g,), (w,) = got["results"], want["results"]
+    np.testing.assert_allclose(g["corners_xy"], w["corners_xy"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(g["confidences"], w["confidences"], rtol=0, atol=1e-3)
+
+
 # --------------------------------------------------------------------------
 # end to end
 # --------------------------------------------------------------------------
@@ -271,7 +337,8 @@ def test_inference_clis_end_to_end_on_cpu(work, tmp_path, capsys):
 def test_inference_clis_refuse_what_is_not_ported_and_need_the_card(work, tmp_path,
                                                                      monkeypatch):
     """--family yolo --onnx runs (a synthetic sample through the YOLO
-    ladder's int8 rung on the CPU); no --stablehlo flag; without --device
+    ladder's int8 rung on the CPU); --pt2 runs (the seg program, a
+    synthetic sample), and no two sources go together; without --device
     cpu the CLIs ask for the card and raise where there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     r = pose_inference_torch.main(["--onnx", str(work["packages"]["yolo"]), "--family", "yolo",
@@ -280,9 +347,15 @@ def test_inference_clis_refuse_what_is_not_ported_and_need_the_card(work, tmp_pa
     assert r["source"].endswith("yolo_int8.onnx") and r["ladder_fell_past"] == []
     xy = np.asarray(r["results"][0]["corners_xy"])
     assert xy.shape == (4, 2) and np.isfinite(xy).all()
+    r = seg_inference_torch.main(["--pt2", str(work["packages"]["seg"]), "--synthetic", "1",
+                                  "--device", "cpu", "--output-dir", str(tmp_path / "seg"),
+                                  *SEG_SET])
+    assert r["source"].endswith("model.pt2") and len(r["results"]) == 1
     with pytest.raises(SystemExit):
-        seg_inference_torch.main(["--stablehlo", "x", "--synthetic", "1"])
+        seg_inference_torch.main(["--pt2", "x", "--onnx", "y", "--synthetic", "1"])
     for main, args in ((seg_inference_torch.main, ["--onnx", str(work["packages"]["seg"])]),
-                       (pose_inference_torch.main, ["--onnx", str(work["packages"]["hrnet"])])):
+                       (seg_inference_torch.main, ["--pt2", str(work["packages"]["seg"])]),
+                       (pose_inference_torch.main, ["--onnx", str(work["packages"]["hrnet"])]),
+                       (pose_inference_torch.main, ["--pt2", str(work["packages"]["hrnet"])])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([*args, "--synthetic", "1"])

@@ -352,7 +352,7 @@ def test_train_pose_cli_trains_and_resumes_on_cpu(tmp_path):
 
 def test_export_pose_cli_on_cpu(weights, tmp_path, capsys):
     """export_pose_torch.py --device cpu on a seeded checkpoint: the JAX
-    CLI's files (no StableHLO), pose.onnx with the JAX writer's bytes, the
+    CLI's files (pose.pt2 in place of its StableHLO artifact), pose.onnx with the JAX writer's bytes, the
     verdicts of the seeded tree (fp32 and dynamic pass), an exit code that
     agrees with them, and --info."""
     save_params(str(tmp_path), "seeded", *weights, epoch=2)
@@ -372,14 +372,15 @@ def test_export_pose_cli_on_cpu(weights, tmp_path, capsys):
     assert set(verdicts) == set(GATES)
     assert smoke.export_gate_faults({"exit": code}, verdicts,
                                     frozenset({"fp16", "int8"})) == []
-    assert {"pose.onnx", "pose_fp16.onnx", "pose_int8.onnx", "pose_dynamic.onnx"} <= set(
-        os.listdir(out))
+    assert {"pose.onnx", "pose_fp16.onnx", "pose_int8.onnx", "pose_dynamic.onnx", "pose.pt2",
+            "pose.pt2.json"} <= set(os.listdir(out))
     ref = jax_onnx.export_pose_model(jax.tree.map(np.asarray, jax_fold(*weights)), (H, W), HM)
     jax_optimize(ref)
     assert (out / "pose.onnx").read_bytes() == ref.serialize()
     if code == 0:
         info = json.loads((out / "pose_info.json").read_text())
-        assert info["stablehlo"] is None and info["parity"]["fp32_pass"]
+        assert info["torch_export"]["self_test_pass"] and info["parity"]["fp32_pass"]
+        assert info["torch_export"]["self_test_max_diff"] < 1e-5
     info = export_pose_torch.main([*args, "--info"])
     assert info["parameters"] == 4_233_508 and info["epoch"] == 2
     assert info["heatmaps"] == [1, 4, *HM]

@@ -202,11 +202,11 @@ _JAX_IMPORT = re.compile(
 CLIS = ("train_seg_torch", "evaluate_seg_torch", "prune_seg_torch", "export_seg_torch",
         "seg_inference_torch", "pose_inference_torch", "train_pose_torch",
         "evaluate_pose_torch", "export_pose_torch")
-TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch")
+TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch", "distributed_step_torch")
 
 
 def test_port_sources_import_no_jax():
-    """No port source, nor chip_smoke.py, nor the card's two tools, nor
+    """No port source, nor chip_smoke.py, nor the card's three tools, nor
     the port's CLIs import jax, flax, optax, orbax or the JAX package,
     name a module of it without ``_torch``, or import the Orbax converter
     (the one tool that needs JAX)."""
@@ -238,8 +238,9 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module, chip_smoke.py, the card's two tools
-    (tools/stencil_floor_torch.py, tools/fp32_conv_accuracy_torch.py) and
+    """Every port module, chip_smoke.py, the card's three tools
+    (tools/stencil_floor_torch.py, tools/fp32_conv_accuracy_torch.py,
+    tools/distributed_step_torch.py) and
     the port's nine CLIs import in a process where importing jax, flax,
     orbax, optax or the JAX package fails."""
     mods = sorted(

@@ -295,7 +295,8 @@ def test_train_yolo_cli_trains_and_resumes_on_cpu(tmp_path):
 
 def test_export_yolo_cli_on_cpu(weights, tmp_path, capsys):
     """export_yolo_torch.py --device cpu on a seeded checkpoint: the JAX
-    CLI's files (no StableHLO), yolo.onnx with the JAX writer's bytes, the
+    CLI's files (yolo.pt2 in place of its StableHLO artifact), yolo.onnx
+    with the JAX writer's bytes, the
     shipped decode_yolo.py, five verdicts that all pass and exit 0, and
     --info."""
     save_params(str(tmp_path), "seeded", *weights, epoch=2)
@@ -310,13 +311,16 @@ def test_export_yolo_cli_on_cpu(weights, tmp_path, capsys):
     assert verdicts == dict.fromkeys(GATES, "PASS")
     assert smoke.export_gate_faults({"exit": 0}, verdicts, frozenset()) == []
     assert {"yolo.onnx", "yolo_fp16.onnx", "yolo_int8.onnx", "yolo_dynamic.onnx",
-            "yolo_info.json", "decode_yolo.py"} <= set(os.listdir(out))
+            "yolo.pt2", "yolo.pt2.json", "yolo_info.json", "decode_yolo.py"} <= set(
+                os.listdir(out))
     ref = jax_onnx_yolo.export_yolo_model(jax.tree.map(np.asarray, jax_fold(*weights)), imgsz=S)
     jax_optimize(ref)
     assert (out / "yolo.onnx").read_bytes() == ref.serialize()
     assert (out / "decode_yolo.py").read_text() == Path(yolo_client_decode.__file__).read_text()
     saved = json.loads((out / "yolo_info.json").read_text())
-    assert saved["stablehlo"] is None and saved["parity"]["fp32_pass"]
+    assert saved["torch_export"]["self_test_pass"] and saved["parity"]["fp32_pass"]
+    assert saved["torch_export"]["self_test_max_diff"] < 1e-5
+    assert saved["torch_export"]["bytes"] == (out / "yolo.pt2").stat().st_size
     assert saved == json.loads(json.dumps(info))
     info = export_yolo_torch.main([*args, "--info"])
     assert info["parameters"] == 2_640_455 and info["epoch"] == 2

@@ -15,6 +15,7 @@ Examples:
   python train_pose_torch.py --device cpu --set pose.input_height=64 \\
       pose.input_width=96 pose.heatmap_height=16 pose.heatmap_width=24 \\
       data.batch_size=2 train.num_epochs=1 train.steps_per_epoch=2
+  torchrun --nproc_per_node=N train_pose_torch.py   # data-parallel, one rank per card
 """
 
 from __future__ import annotations
@@ -39,10 +40,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     from mtg_card_image_segmentation_tpu_torch.config import Config, pose_default_config
     from mtg_card_image_segmentation_tpu_torch.data.pipeline import PoseSyntheticPipeline
+    from mtg_card_image_segmentation_tpu_torch.parallel import distributed
     from mtg_card_image_segmentation_tpu_torch.training.pose_trainer import PoseTrainer
     from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 
+    # torchrun: join the process group, one rank per card; a no-op for a
+    # lone process
+    distributed.initialize(device=args.device)
     device = resolve_device(args.device)
+    if device.type == "cuda" and distributed.is_active():
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = Config.from_json(args.config) if args.config else pose_default_config()
     if args.set:
         cfg = cfg.with_cli(args.set)

@@ -12,6 +12,11 @@ Examples:
 
   # resume from the latest checkpoint (or --resume <name>)
   python train_seg_torch.py --resume
+
+  # data-parallel over N cards of one host, one process per card
+  # (data.batch_size is the global batch; nccl on the card, gloo with
+  # --device cpu)
+  torchrun --nproc_per_node=N train_seg_torch.py --set data.batch_size=64
 """
 
 from __future__ import annotations
@@ -35,11 +40,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
     import torch
 
     from mtg_card_image_segmentation_tpu_torch.config import Config, default_config
+    from mtg_card_image_segmentation_tpu_torch.data.pipeline import rank_seed
     from mtg_card_image_segmentation_tpu_torch.data.preprocess import normalize_only
+    from mtg_card_image_segmentation_tpu_torch.parallel import distributed
     from mtg_card_image_segmentation_tpu_torch.training.trainer import SegTrainer
     from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 
+    # torchrun: join the process group, one rank per card; a no-op for a
+    # lone process
+    distributed.initialize(device=args.device)
     device = resolve_device(args.device)
+    if device.type == "cuda" and distributed.is_active():
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = Config.from_json(args.config) if args.config else default_config()
     if args.set:
         cfg = cfg.with_cli(args.set)
@@ -70,11 +82,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                             seed=cfg.train.seed, assets=assets,
                                             real_prob=cfg.data.real_asset_prob, device=device))
 
+        val_batch = distributed.local_batch_size(batch)
+
         def _val_batch(seed: int):
             # made afresh from its seed, so every epoch sees the same images;
-            # with a bank, validation covers the real-asset domain too
-            gen = torch.Generator(device=device).manual_seed(seed)
-            b = synthetic_batch(gen, batch, h, w, 0.09, assets, cfg.data.real_asset_prob)
+            # with a bank, validation covers the real-asset domain too; each
+            # rank renders its share from its own seed
+            gen = torch.Generator(device=device).manual_seed(rank_seed(seed))
+            b = synthetic_batch(gen, val_batch, h, w, 0.09, assets, cfg.data.real_asset_prob)
             return normalize_only(b.image), b.mask
 
         def make_val_batches(n: int = 8, seed: int = 10_000):
@@ -110,9 +125,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
         def make_val_batches():
             # the test split unshuffled, its tail batch padded; the trainer
-            # weights the padding out by ``valid``
+            # weights the padding out by ``valid``. Over several ranks the
+            # tail is dropped (the JAX CLI's rule: per-rank padding is not
+            # accounted)
             return iter(FilePipeline(test_ds, batch, h, w, augment=None, shuffle=False,
-                                     drop_last=False, device=device))
+                                     drop_last=distributed.process_count() > 1,
+                                     device=device))
 
         def make_recal_batches(n: int = 6):
             pipe = FilePipeline(train_ds, batch, h, w, augment=None, shuffle=True,
