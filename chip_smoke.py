@@ -89,7 +89,20 @@ also at 320x240 b128 and b1 from that predictor's features and at a ragged
   seg fp32 train step at 320x240 b32 in an NCCL group of one rank and in a
   gloo group of two ranks on the one card (this script's
   ``distributed-worker`` mode), against the plain step and its float64
-  step, and ``SegPredictor(mesh=make_mesh())`` through kernels 1-3.
+  step, and ``SegPredictor(mesh=make_mesh())`` through kernels 1-3;
+- the mesh's spatial axis (``space``): two gloo ranks on the one card
+  (``space-worker`` mode), mesh (data=1, space=2), the rows of every map
+  split between them with halo rows exchanged through the host: the seg
+  fp32 step at 320x240 b32 and the full HRNet's at 480x640 b4 (an uneven
+  15-row s32 branch), held by the ``distributed`` rule, the float64
+  sharded seg step against the plain one to 1e-12, each step's ms and the
+  row exchanges' share of it;
+- the graft entry, the block profiler and the data-generation surfaces
+  (``tools``): ``graft_entry_torch.entry()`` card vs CPU,
+  ``tools/profile_blocks_torch.py`` at 512x512 b128 (kernels 4 and 1,
+  ``launches_by_path``'s ``profile_blocks``), ``generate_dataset_torch.py``
+  at 320x240 and its resume, ``tta_batch`` card vs CPU, and the plot CLIs'
+  computation (a checkpoint's prediction grid card vs CPU).
 
 It also profiles a few b128 ``predict`` calls of the three
 predictors: device time by kernel class and the card's idle share.
@@ -3935,7 +3948,7 @@ def distributed_worker(rank: str, port: str, work: str) -> int:
     return 0
 
 
-def phase_distributed(torch, card, root: Path) -> dict:
+def phase_distributed(torch, card, root: Path) -> tuple:
     """Data-parallel training and batch-split serving on the one card, the
     seg config's fp32 train step at 320x240 b32 (cuDNN deterministic for
     the comparison, restored after): (a) this process in an ``nccl`` group
@@ -3946,7 +3959,9 @@ def phase_distributed(torch, card, root: Path) -> dict:
     from the float64 plain step than twice the plain fp32 step's
     (``tests/test_torch_distributed.py``'s rule); (c) ``SegPredictor(mesh=
     make_mesh())`` at b32 through kernels 1-3, its masks equal to the plain
-    predictor's. Returns (c)'s kernel launches."""
+    predictor's. Returns (c)'s kernel launches, and the plain fp32 and
+    float64 step records (the ``space`` phase's references; the batch is
+    ``<root>/dist_inputs.npz``)."""
     import numpy as np
 
     from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
@@ -4042,6 +4057,344 @@ def phase_distributed(torch, card, root: Path) -> dict:
     if bad:
         fail(f"distributed: {bad}")
     _check_seg_launches("distributed_served", launches)
+    return launches, {"plain": plain, "exact": exact}
+
+
+SPACE_POSE_B = 4                   # the HRNet step of the space phase: 480x640 b4
+SPACE_FLOAT64_TOL = 1e-12          # float64 sharded step vs plain, of each tensor's max
+SPACE_ZERO = 1e-9                  # a gradient below this share of the largest is zero
+
+
+def space_pose_step(torch, imgs, targets, mesh=None, timed: int = 0, float64: bool = False):
+    """One SGD step of the full HRNet (seeded Flax-like weights, 120x160
+    heatmaps) on (imgs, targets), fp32 or float64: its record, and with
+    ``timed`` the median ms of that many further steps."""
+    from mtg_card_image_segmentation_tpu_torch.config import OptimizerConfig
+    from mtg_card_image_segmentation_tpu_torch.models.hrnet import HRNetPose
+    from mtg_card_image_segmentation_tpu_torch.training.loop import (
+        float64_casts,
+        float64_copy,
+        make_pose_train_step,
+    )
+    from mtg_card_image_segmentation_tpu_torch.training.optim import create_optimizer
+    from mtg_card_image_segmentation_tpu_torch.training.state import create_seg_state
+    from mtg_card_image_segmentation_tpu_torch.utils.params import (
+        flax_to_state_dict,
+        init_hrnet_flax_like,
+    )
+
+    model = HRNetPose(heatmap_height=POSE_HEATMAP_HW[0], heatmap_width=POSE_HEATMAP_HW[1],
+                      dtype=torch.float32)
+    model.load_state_dict(flax_to_state_dict(*init_hrnet_flax_like(SEED)), strict=True)
+    model = model.to(imgs.device).train()
+    opt_def, _ = create_optimizer(OptimizerConfig(**DIST_SGD), 1, 10)
+    step = make_pose_train_step(mesh=mesh)
+    with float64_casts() if float64 else nullcontext():
+        if float64:
+            model = float64_copy(model).train()
+            imgs, targets = imgs.double(), targets.double()
+        state = create_seg_state(model, opt_def)
+        _, stats = step(state, imgs, targets)
+        rec = dist_record(state, stats)
+        if timed:
+            rec["step_ms"] = median_ms(torch, lambda: step(state, imgs, targets), timed, 1)
+    return rec
+
+
+def space_halo_ms(torch, fn) -> float:
+    """The row exchanges' time in one call of ``fn``
+    (``parallel/space.py::EXCHANGE_TIMER``: each exchange between two
+    device synchronizes)."""
+    from mtg_card_image_segmentation_tpu_torch.parallel import space
+
+    space.EXCHANGE_TIMER = {}
+    try:
+        fn()
+        return space.EXCHANGE_TIMER.get("seconds", 0.0) * 1e3
+    finally:
+        space.EXCHANGE_TIMER = None
+
+
+def space_worker(rank: str, port: str, work: str) -> int:
+    """One rank of the ``space`` phase's two-process gloo group on the one
+    card (``python3 chip_smoke.py space-worker <rank> <port> <dir>``), mesh
+    (data=1, space=2): its rows of the seg b32 batch and of the HRNet b4
+    batch; each fp32 step recorded and timed, the row exchanges' ms in one
+    step, and the float64 seg step."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from mtg_card_image_segmentation_tpu_torch.parallel import distributed, make_mesh, shard_batch
+    from mtg_card_image_segmentation_tpu_torch.training.loop import (
+        float64_casts,
+        float64_copy,
+        make_train_step,
+    )
+
+    rank = int(rank)
+    distributed.initialize(f"localhost:{port}", 2, rank, device="cpu")  # gloo
+    torch.cuda.set_device(0)
+    mesh = make_mesh(space=2, devices=["cuda:0"])
+    out = {}
+    with np.load(Path(work) / "dist_inputs.npz") as z:
+        (imgs, masks), = shard_batch(mesh, *(torch.from_numpy(z[k]).cuda()
+                                             for k in ("images", "masks")))
+    rec = dist_step(torch, imgs, masks, mesh, timed=5)
+    state = train_state(torch, DIST_SGD, "float32")
+    step = make_train_step(mesh=mesh)
+    step(state, imgs, masks)
+    rec["halo_ms"] = space_halo_ms(torch, lambda: step(state, imgs, masks))
+    rec["rows"] = imgs.shape[1]
+    out["seg"] = rec
+    del state
+    with float64_casts():
+        state = train_state(torch, DIST_SGD, "float32")
+        state.model = float64_copy(state.model).train()
+        state.optimizer = state.opt_def.build(state.model.parameters())
+        _, stats = step(state, imgs.double(), masks)
+        out["seg_float64"] = dist_record(state, stats)
+    del state
+    with np.load(Path(work) / "space_pose_inputs.npz") as z:
+        (pimgs, ptargets), = shard_batch(mesh, *(torch.from_numpy(z[k]).cuda()
+                                                 for k in ("images", "targets")))
+    rec = space_pose_step(torch, pimgs, ptargets, mesh, timed=3)
+    rec["halo_ms"] = space_halo_ms(
+        torch, lambda: space_pose_step(torch, pimgs, ptargets, mesh))
+    rec["rows"] = pimgs.shape[1]
+    out["hrnet"] = rec
+    for name, r in out.items():
+        np.savez(Path(work) / f"space_{name}_rank{rank}.npz", **r)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def space_float64_misses(rec: dict, ref: dict) -> list:
+    """Tensors of a float64 sharded step farther than 1e-12 of their
+    largest entry (the model's largest where the tensor is zero in exact
+    arithmetic) from the plain float64 step's."""
+    import numpy as np
+
+    bad = []
+    for prefix in ("grad/", "buffer/"):
+        keys = [k for k in ref if k.startswith(prefix)]
+        top = max(float(np.abs(ref[k]).max()) for k in keys)
+        for k in keys:
+            vmax = float(np.abs(ref[k]).max())
+            scale = top if vmax <= SPACE_ZERO * top else vmax
+            err = float(np.abs(rec[k] - ref[k]).max())
+            if not err <= SPACE_FLOAT64_TOL * scale:
+                bad.append((k, err / scale))
+    return bad
+
+
+def phase_space(torch, card, root: Path, refs: dict) -> None:
+    """The mesh's spatial axis on the one card: two gloo ranks
+    (``space-worker``), mesh (data=1, space=2), each holding half the rows
+    of every map and exchanging halo rows through the host. The seg config's
+    fp32 step at 320x240 b32 (160 rows per rank; the ``distributed`` phase's
+    batch and its plain fp32 and float64 steps) and the full HRNet's fp32
+    step at 480x640 b4 (its s32 branch of 15 rows split 8/7), each held by
+    the ``distributed`` rule: the loss within 1e-6 of the plain step's, the
+    gradients and BN statistics no farther from the float64 plain step than
+    twice the plain fp32 step's distance; the float64 sharded seg step
+    equal to the float64 plain step to 1e-12 of each tensor's largest
+    entry. cuDNN deterministic, TF32 off. Prints each step's ms and the
+    row exchanges' share of it."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        imgs, targets, _ = pose_batch(torch, SPACE_POSE_B, SEED + 600, device="cuda")
+        pose_plain = space_pose_step(torch, imgs, targets, timed=3)
+        pose_exact = space_pose_step(torch, imgs, targets, float64=True)
+        np.savez(root / "space_pose_inputs.npz", images=imgs.cpu().numpy(),
+                 targets=targets.cpu().numpy())
+        del imgs, targets
+        torch.cuda.empty_cache()
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "space-worker",
+                                   str(r), str(port), str(root)], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=400)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"space workers: {[p.returncode for p in procs]}: "
+                 f"{[o[-2000:] for o in outs]}")
+    finally:
+        torch.backends.cudnn.deterministic = kept
+    ranks = [{n: dict(np.load(root / f"space_{n}_rank{r}.npz"))
+              for n in ("seg", "hrnet", "seg_float64")} for r in range(2)]
+    bad, rows = [], {}
+    for name, plain, exact in (("seg", refs["plain"], refs["exact"]),
+                               ("hrnet", pose_plain, pose_exact)):
+        rec = ranks[0][name]
+        d_plain = {p: dist_distance(plain, exact, p) for p in ("grad/", "buffer/")}
+        row = {"rows_per_rank": [int(r[name]["rows"]) for r in ranks],
+               "loss_plain": plain["loss"], "loss_float64": exact["loss"],
+               "loss_rel": abs(float(rec["loss"]) - plain["loss"]) / abs(plain["loss"]),
+               "plain_step_ms": plain["step_ms"],
+               "space_step_ms": [float(r[name]["step_ms"]) for r in ranks],
+               "halo_ms": [float(r[name]["halo_ms"]) for r in ranks],
+               "plain_distance_from_float64": d_plain,
+               **{f"{p[:-1]}_distance_from_float64": dist_distance(rec, exact, p)
+                  for p in ("grad/", "buffer/")}}
+        row["halo_share_of_step"] = [h / t for h, t in zip(row["halo_ms"],
+                                                           row["space_step_ms"])]
+        rows[name] = row
+        if not row["loss_rel"] <= DIST_LOSS_REL:
+            bad.append(f"{name} loss {rec['loss']} vs plain {plain['loss']}")
+        for p in ("grad/", "buffer/"):
+            if not row[f"{p[:-1]}_distance_from_float64"] <= DIST_FP32_FACTOR * d_plain[p]:
+                bad.append(f"{name} {p[:-1]}: {row}")
+        if any(not np.array_equal(ranks[0][name][k], ranks[1][name][k]) for k in rec
+               if k.startswith(("grad/", "buffer/"))):
+            bad.append(f"{name}: the two ranks hold different gradients or statistics")
+    misses = space_float64_misses(ranks[0]["seg_float64"], refs["exact"])
+    rows["seg_float64"] = {
+        "loss_rel": abs(float(ranks[0]["seg_float64"]["loss"]) - refs["exact"]["loss"])
+        / abs(refs["exact"]["loss"]), "tensors_off": misses[:5]}
+    if misses or not rows["seg_float64"]["loss_rel"] <= SPACE_FLOAT64_TOL:
+        bad.append(f"float64 sharded seg step: {rows['seg_float64']}")
+    emit({"phase": "space", "mesh": {"data": 1, "space": 2}, "backend": "gloo (host-staged)",
+          "seg": {"size": list(DIST_HW), "batch": DIST_B, **rows["seg"]},
+          "hrnet": {"size": list(POSE_HW), "batch": SPACE_POSE_B, **rows["hrnet"]},
+          "seg_float64": rows["seg_float64"],
+          "tolerance": {"loss_rel": DIST_LOSS_REL, "fp32_factor": DIST_FP32_FACTOR,
+                        "float64": SPACE_FLOAT64_TOL},
+          "seconds": time.perf_counter() - t_start,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if bad:
+        fail(f"space: {bad}")
+
+
+TOOLS_GEN = ("--train", "64", "--test", "16", "--height", "320", "--width", "240")
+TTA_TOL = 1e-6          # tta_batch card vs CPU, max|d| of [0,1] images
+ENTRY_AGREEMENT = 0.998  # bf16 argmax agreement, card vs CPU
+
+
+def _run_cli(args, timeout: int = 300) -> dict:
+    """Run a CLI of the repo; its last JSON line."""
+    p = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    if p.returncode:
+        fail(f"{args[0]}: rc {p.returncode}: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+    return json.loads([ln for ln in p.stdout.splitlines() if ln.startswith("{")][-1])
+
+
+def phase_tools(torch, card, root: Path, seg_ck: Path) -> dict:
+    """The graft entry, the block profiler and the data-generation
+    surfaces on the card: ``graft_entry_torch.entry()`` (its logits against
+    the same entry on the CPU); ``tools/profile_blocks_torch.py`` at 512x512
+    b128 (5 passes; its ``norm`` cut launches ``fused_normalize``, its
+    ``decode`` cut ``fused_mask_decode``); ``generate_dataset_torch.py``
+    at 320x240 (64 train, 16 test, ``--derive-corners``, ``--yolo-output``)
+    and the same command again, which must write nothing; ``tta_batch`` card
+    vs CPU; the plot CLIs' computation (augmented samples, dataset
+    statistics, the prediction grid of the ``train_cli`` checkpoint, card
+    vs CPU). Returns the profiler's kernel launches."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import generate_examples_torch
+    import graft_entry_torch
+    import profile_blocks_torch
+    import visualize_augmentations_torch
+
+    from mtg_card_image_segmentation_tpu_torch.data.aug_policies import tta_batch
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+
+    t_start = time.perf_counter()
+    bad, out = [], {}
+    # the graft entry
+    fn, args = graft_entry_torch.entry()
+    t0 = time.perf_counter()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.randn((1, 320, 240, 3), generator=torch.Generator().manual_seed(SEED + 700))
+    card_logits = fn(args[0], x.cuda()).float().cpu()
+    cfn, cargs = graft_entry_torch.entry(device="cpu")
+    cpu_logits = cfn(cargs[0], x).float()
+    agree = float((card_logits.argmax(-1) == cpu_logits.argmax(-1)).float().mean())
+    out["entry"] = {"shape": list(logits.shape), "first_call_ms": first_ms,
+                    "finite": bool(torch.isfinite(logits).all()),
+                    "argmax_agreement_card_vs_cpu": agree,
+                    "ms": median_ms(torch, lambda: fn(*args), 5, 1)}
+    if tuple(logits.shape) != (1, 320, 240, 2) or not out["entry"]["finite"] \
+            or not agree >= ENTRY_AGREEMENT:
+        bad.append(f"entry: {out['entry']}")
+    del fn, args, cfn, cargs
+    # the block profiler: kernels 4 and 1 on its cuts
+    _build.reset_launches()
+    prof = profile_blocks_torch.run(size=SIZE, batch=128, iters=5, warmup=2)
+    launches = dict(_build.LAUNCHES)
+    out["profile_blocks"] = {k: prof[k] for k in ("method", "stages", "total_ms", "img_per_s",
+                                                  "out_shape")}
+    out["profile_blocks"]["launches"] = launches
+    for k in ("fused_normalize", "fused_mask_decode"):
+        if launches.get(k, 0) <= 0:
+            bad.append(f"profile_blocks launched no {k}: {launches}")
+    torch.cuda.empty_cache()
+    # dataset generation, then the resume
+    ds, yolo = root / "gen_dataset", root / "gen_yolo"
+    cmd = ["generate_dataset_torch.py", "--output", str(ds), *TOOLS_GEN, "--derive-corners",
+           "--yolo-output", str(yolo)]
+    t0 = time.perf_counter()
+    first = _run_cli(cmd)
+    first["process_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = _run_cli(cmd)
+    again["process_s"] = time.perf_counter() - t0
+    n_imgs = sum(len(list((ds / s / "images").glob("*.jpg"))) for s in ("train", "test"))
+    ann = json.loads((ds / "corner_annotations.json").read_text())
+    out["generate_dataset"] = {"first": first, "resume": again, "images_on_disk": n_imgs,
+                               "annotated": sum(len(v) for v in ann.values()),
+                               "yolo_labels": len(list((yolo / "train" / "labels")
+                                                       .glob("*.txt")))}
+    if first["written"] != 80 or again["written"] != 0 or again["skipped"] != 80 \
+            or n_imgs != 80 or not out["generate_dataset"]["yolo_labels"]:
+        bad.append(f"generate_dataset: {out['generate_dataset']}")
+    # TTA card vs CPU
+    imgs01 = torch.rand((8, 320, 240, 3), generator=torch.Generator().manual_seed(SEED + 701))
+    card_t, cpu_t = tta_batch(imgs01.cuda()), tta_batch(imgs01)
+    tta_err = {k: float((card_t[k].cpu() - cpu_t[k]).abs().max()) for k in cpu_t}
+    out["tta_card_vs_cpu_max_abs"] = tta_err
+    if not max(tta_err.values()) <= TTA_TOL:
+        bad.append(f"tta_batch card vs CPU: {tta_err}")
+    # the plot CLIs' computation
+    rows = visualize_augmentations_torch.augmented_samples(4, 5, 160, 120, keypoints=True)
+    batch = generate_examples_torch.annotation_batch(8, 320, 240)
+    stats = generate_examples_torch.dataset_statistics()
+    preds = generate_examples_torch.prediction_grid(str(seg_ck), batch["image"])
+    cpu_preds = generate_examples_torch.prediction_grid(str(seg_ck), batch["image"],
+                                                        device="cpu")
+    pred_agree = float((preds["preds"] == cpu_preds["preds"]).mean())
+    ok_rows = all(r["images"].shape == (5, 160, 120, 3) and 0 <= r["images"].min()
+                  and r["images"].max() <= 1 and set(np.unique(r["masks"])) <= {0, 1}
+                  for r in rows)
+    out["plots"] = {"augmented_rows": len(rows), "rows_ok": ok_rows,
+                    "stats": {"card": stats["card"], "negative": stats["negative"],
+                              "mean_area_fraction": float(stats["area_fractions"].mean())},
+                    "prediction_agreement_card_vs_cpu": pred_agree}
+    if not ok_rows or stats["card"] + stats["negative"] != 256 \
+            or not pred_agree >= ENTRY_AGREEMENT:
+        bad.append(f"plots: {out['plots']}")
+    emit({"phase": "tools", **out, "seconds": time.perf_counter() - t_start,
+          "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
+    if bad:
+        fail(f"tools: {bad}")
     return launches
 
 
@@ -4192,7 +4545,10 @@ def main() -> int:
             torch, card, Path(tmp), Path(tmp) / "ckpt_synthetic" / "final_model",
             Path(tmp) / "export_slim", Path(tmp) / "export_dense")
         phase_yolo_pipeline(torch, card, Path(tmp))
-        dist_launches = phase_distributed(torch, card, Path(tmp))
+        dist_launches, dist_refs = phase_distributed(torch, card, Path(tmp))
+        phase_space(torch, card, Path(tmp), dist_refs)
+        tools_launches = phase_tools(torch, card, Path(tmp),
+                                     Path(tmp) / "ckpt_synthetic" / "final_model")
 
     # per kernel: source, the TPU kernel it replaces, and its launches on
     # each main path that runs it, every path zeroed before and read after
@@ -4214,7 +4570,8 @@ def main() -> int:
                                "server": server_launches["fused_mask_decode"],
                                "train_cli_served": cli_launches["fused_mask_decode"],
                                "compress_export_served": ce_launches["fused_mask_decode"],
-                               "distributed_served": dist_launches["fused_mask_decode"]}),
+                               "distributed_served": dist_launches["fused_mask_decode"],
+                               "profile_blocks": tools_launches["fused_mask_decode"]}),
         "fused_inverted_residual": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:515",
                                     blocks_by_path),
         "fused_tail_chain": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:393",
@@ -4222,7 +4579,8 @@ def main() -> int:
         "fused_normalize": (f"{src}/preprocess.cu", f"{ref}/preprocess.py:37",
                             {"pose_predict_b128": pose_launches["fused_normalize"],
                              "server": server_launches["fused_normalize"],
-                             "pose_train_served": pose_train_launches["fused_normalize"]}),
+                             "pose_train_served": pose_train_launches["fused_normalize"],
+                             "profile_blocks": tools_launches["fused_normalize"]}),
         "fused_stem": (f"{src}/stem.cu", f"{ref}/stem.py:186",
                        {"seg_options": option_launches["fused_stem"]}),
         "fused_head_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:122",
@@ -4255,4 +4613,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["distributed-worker"]:
         sys.exit(distributed_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["space-worker"]:
+        sys.exit(space_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -45,11 +45,11 @@ def _replace_nested(cfg: Any, overrides: dict) -> Any:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout (``parallel/mesh.py::make_mesh``): ``data`` =
-    batch/data-parallel axis over the ``torch.distributed`` ranks, one
-    process per GPU; ``hosts`` = the hosts' share of it. ``space`` (spatial
-    partitioning of the H activation axis) and ``model`` (channel sharding)
-    are queued (ROADMAP Queue A): ``make_mesh`` raises for either above 1.
+    """Device-mesh layout (``parallel/mesh.py::make_mesh``) over the
+    ``torch.distributed`` ranks, one process per GPU: ``data`` =
+    batch/data-parallel axis; ``hosts`` = the hosts' share of it; ``space``
+    = spatial partitioning of the H activation axis (``parallel/space.py``);
+    ``model`` = replication, as the JAX package's specs never name it.
 
     ``data=-1`` means "all remaining devices".
     """

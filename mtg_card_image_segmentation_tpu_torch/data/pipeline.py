@@ -8,7 +8,10 @@ Under a ``torch.distributed`` process group of more than one rank
 ``local_batch_size`` share (``parallel/distributed.py``): the synthetic
 streams draw from a generator seeded from (seed, rank), and the file
 stream decodes the rank's ``process_shard`` of the file order, as the JAX
-pipelines do per process.
+pipelines do per process. Under a layout with ``space`` or ``model`` axes
+(``parallel/space.py``, made current by ``space.use``) a data shard is the
+ranks of one data index: they draw the same batch, and each keeps its rows
+of the images, the masks and the heatmap targets (``space.shard_rows``).
 
 Both replace the reference's torch DataLoader (train/dataset.py:208-260,
 4 CPU workers doing decode + augment per sample).
@@ -32,16 +35,17 @@ from mtg_card_image_segmentation_tpu_torch.data.synthetic import (
     synthetic_augmented_batch,
     synthetic_batch,
 )
-from mtg_card_image_segmentation_tpu_torch.parallel import distributed
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed, space
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 
 
 def rank_seed(seed: int) -> int:
-    """``seed`` on one process; under more than one rank a seed drawn from
-    (seed, rank), so that every rank draws its own stream."""
-    if distributed.process_count() == 1:
+    """``seed`` on one data shard; over more than one a seed drawn from
+    (seed, data shard), so that every shard draws its own stream
+    (``distributed.data_index``: the rank, or its layout's data index)."""
+    if distributed.data_count() == 1:
         return seed
-    return int(np.random.SeedSequence([seed, distributed.process_index()])
+    return int(np.random.SeedSequence([seed, distributed.data_index()])
                .generate_state(1)[0])
 
 
@@ -76,7 +80,7 @@ class SyntheticPipeline:
         else:
             sample = synthetic_batch(self._gen, self._local_bs, self.height, self.width,
                                      NEGATIVE_PROB, self.assets, self.real_prob)
-        return normalize_only(sample.image), sample.mask
+        return space.shard_rows(normalize_only(sample.image)), space.shard_rows(sample.mask)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         while True:
@@ -127,7 +131,7 @@ class PoseSyntheticPipeline:
                                      keep_in_frame=True)
         hm_coords = pixels_to_heatmap_coords(sample.corners, (h, w), self.heatmap_hw)
         targets = gaussian_heatmaps_batch(hm_coords, *self.heatmap_hw, self.sigma)
-        return sample.image, targets, sample.corners
+        return space.shard_rows(sample.image), space.shard_rows(targets), sample.corners
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         while True:
@@ -169,7 +173,7 @@ class FilePipeline:
         self.prefetch = prefetch
         self.device = resolve_device(device)
         self._local_bs = distributed.local_batch_size(batch_size)
-        if distributed.process_count() > 1 and not drop_last:
+        if distributed.data_count() > 1 and not drop_last:
             raise ValueError("a FilePipeline over several ranks needs drop_last")
         self._rng = np.random.default_rng(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(rank_seed(seed))
@@ -184,7 +188,7 @@ class FilePipeline:
     def _host_batches(self):
         """One epoch of host batches: (B,H,W,3) uint8, (B,H,W) uint8, valid."""
         order = np.arange(len(self.dataset))
-        if distributed.process_count() > 1:
+        if distributed.data_count() > 1:
             order = np.asarray(distributed.process_shard(list(order)))
         if self.shuffle:
             self._rng.shuffle(order)
@@ -262,7 +266,7 @@ class FilePipeline:
                     raise item
                 imgs_u8, masks_u8, valid = item
                 images, masks = self._device_batch(imgs_u8, masks_u8)
-                yield images, masks, valid
+                yield space.shard_rows(images), space.shard_rows(masks), valid
         finally:
             stop.set()
             t.join(timeout=10)

@@ -15,7 +15,9 @@ batch, as the JAX package's over a data-sharded batch: their sums are
 all-reduced over the ranks (with a backward) before the ratio, so every
 rank holds the global loss. The heatmap MSE is a local mean: over equal
 local batches, ``DistributedDataParallel``'s gradient average makes it
-the global one.
+the global one. Under a layout with ``space`` or ``model`` axes
+(``parallel/space.py``) the shards are not equal (uneven rows), so it is
+the all-reduced sum over the all-reduced count.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from mtg_card_image_segmentation_tpu_torch.parallel import space
 from mtg_card_image_segmentation_tpu_torch.parallel.distributed import all_reduce_sum, is_active
 
 
@@ -76,4 +79,8 @@ def heatmap_mse_loss(pred_heatmaps: torch.Tensor,
                      target_heatmaps: torch.Tensor) -> torch.Tensor:
     """Mean-squared error over (B, H, W, K) keypoint heatmaps."""
     diff = pred_heatmaps.float() - target_heatmaps.float()
-    return torch.mean(diff * diff)
+    if space.layout() is None:
+        return torch.mean(diff * diff)
+    total, n = all_reduce_sum(torch.stack([torch.sum(diff * diff),
+                                           diff.new_tensor(diff.numel())]))
+    return total / n

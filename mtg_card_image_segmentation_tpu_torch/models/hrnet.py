@@ -11,7 +11,9 @@ bilinear resize to the exact heatmap size.
 Numerics follow the reference: convs in ``dtype``, BatchNorm in float32,
 residual and fusion sums in float32 and cast once, the final resize in
 float32. BatchNorm is not folded: serving runs the model with its
-statistics.
+statistics. Under a spatial layout the convs, the fusion's resizes, the
+head's transpose convs and the final resize go through
+``parallel/space.py``'s row-split helpers.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from mtg_card_image_segmentation_tpu_torch.models.layers import (
     BN_EPS,
@@ -30,7 +31,7 @@ from mtg_card_image_segmentation_tpu_torch.models.layers import (
     nchw,
     nhwc,
 )
-from mtg_card_image_segmentation_tpu_torch.ops.resize import bilinear_resize, nearest_resize
+from mtg_card_image_segmentation_tpu_torch.parallel import space
 
 W18_SMALL_CHANNELS: Tuple[Tuple[int, ...], ...] = ((16, 32), (16, 32, 64), (16, 32, 64, 128))
 W18_SMALL_BLOCKS = 2
@@ -115,7 +116,7 @@ class FuseLayer(nn.Module):
                         y = getattr(self, f"down{i}_{j}_{s}")(y)
                 else:
                     y = getattr(self, f"up{i}_{j}")(x)
-                    y = nearest_resize(y, xs[i].shape[1], xs[i].shape[2])
+                    y = space.nearest_resize(y, xs[i].shape[1], xs[i].shape[2])
                 acc = y.float() if acc is None else acc + y.float()
             outs.append(torch.relu(acc).to(self.dtype))
         return outs
@@ -188,15 +189,15 @@ class HRNetPoseHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(2):
             deconv = getattr(self, f"deconv{i}")
-            y = F.conv_transpose2d(nchw(x.to(self.dtype)), deconv.weight.to(self.dtype),
-                                   None, stride=2, padding=1)
+            y = space.conv_transpose2d(nchw(x.to(self.dtype)), deconv.weight.to(self.dtype),
+                                       stride=2, padding=1)
             y = getattr(self, f"deconv_bn{i}")(y.float())
             x = nhwc(torch.relu(y).to(self.dtype))
         x = self.conv1(self.conv0(x))
         # the bias is added after the conv's own rounding, as in ConvBNAct
-        y = F.conv2d(nchw(x), self.final.weight.to(self.dtype), None)
+        y = space.conv2d(nchw(x), self.final.weight.to(self.dtype), None)
         y = y + self.final.bias.to(self.dtype)[:, None, None]
-        return bilinear_resize(nhwc(y).float(), *self.heatmap_hw)
+        return space.bilinear_resize(nhwc(y).float(), *self.heatmap_hw, global_h=True)
 
 
 class HRNetPose(nn.Module):

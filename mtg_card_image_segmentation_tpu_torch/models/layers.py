@@ -21,6 +21,11 @@ and *biased* variance and updates the running statistics as Flax does,
 batch is the global one: its statistics come from sums all-reduced over the
 ranks, as the JAX package's mean over a data-sharded axis is a psum. Eval
 mode reads the running statistics.
+
+Under a spatial layout (``parallel/space.py``) each rank holds some rows of
+every map: the convs fetch their halo rows from the rows' owners, the SE
+pool's sum and count are all-reduced over the space group, and BatchNorm's
+global sums already cover every rank's pixels.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mtg_card_image_segmentation_tpu_torch.parallel import distributed
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed, space
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99  # Flax's convention; torch's 0.01
@@ -111,12 +116,13 @@ class _GlobalBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         dims = (0, 2, 3)
+        ctx.group = space.batch_group() or torch.distributed.group.WORLD
         total = distributed.all_reduce_sum(
-            torch.cat([x.sum(dims), x.new_full((1,), x.numel() // x.shape[1])]))
+            torch.cat([x.sum(dims), x.new_full((1,), x.numel() // x.shape[1])]), ctx.group)
         n = total[-1]
         mean = total[:-1] / n
         d = x - mean[None, :, None, None]
-        var = distributed.all_reduce_sum((d * d).sum(dims)) / n
+        var = distributed.all_reduce_sum((d * d).sum(dims), ctx.group) / n
         invstd = torch.rsqrt(var + eps)
         xhat = d * invstd[None, :, None, None]
         ctx.save_for_backward(xhat, weight, invstd, n)
@@ -128,7 +134,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         xhat, weight, invstd, n = ctx.saved_tensors
         dims = (0, 2, 3)
         g_bias, g_weight = dy.sum(dims), (dy * xhat).sum(dims)
-        sums = distributed.all_reduce_sum(torch.cat([g_bias, g_weight])) / n
+        sums = distributed.all_reduce_sum(torch.cat([g_bias, g_weight]), ctx.group) / n
         mean_dy, mean_dy_xhat = sums.chunk(2)
         dx = (weight * invstd)[None, :, None, None] * (
             dy - mean_dy[None, :, None, None] - xhat * mean_dy_xhat[None, :, None, None])
@@ -201,8 +207,8 @@ class ConvBNAct(nn.Module):
         # (cuDNN: after the conv's own rounding; oneDNN: once), so it is
         # kept out, and the card and the CPU agree up to the order of the
         # conv's sum.
-        y = F.conv2d(nchw(x.to(self.dtype)), self.conv.weight.to(self.dtype), None,
-                     self.stride, self.padding, self.dilation, self.groups)
+        y = space.conv2d(nchw(x.to(self.dtype)), self.conv.weight.to(self.dtype), None,
+                         self.stride, self.padding, self.dilation, self.groups)
         if self.bn is not None:
             y = self.bn(y.float())
         elif self.conv.bias is not None:
@@ -225,7 +231,7 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # pooled in float32 (float64 in a float64 pass)
-        s = x.mean(dim=(1, 2), dtype=torch.promote_types(x.dtype, torch.float32))
+        s = space.mean_hw(x, torch.promote_types(x.dtype, torch.float32))
         s = s.to(self.dtype)  # (B, C)
         s = F.linear(s, self.fc1.weight.to(self.dtype).flatten(1),
                      self.fc1.bias.to(self.dtype))

@@ -23,7 +23,7 @@ from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
     LOW_CHANNELS,
     MobileNetV3Backbone,
 )
-from mtg_card_image_segmentation_tpu_torch.ops.resize import bilinear_resize
+from mtg_card_image_segmentation_tpu_torch.parallel import space
 
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -47,10 +47,10 @@ class LRASPPHead(nn.Module):
     def forward(self, low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
         x = self.cbr(high)
         # (B, C) pooled in fp32 (float64 in a float64 pass)
-        s = high.mean(dim=(1, 2), dtype=torch.promote_types(high.dtype, torch.float32))
+        s = space.mean_hw(high, torch.promote_types(high.dtype, torch.float32))
         s = torch.sigmoid(conv1x1(s, self.scale, self.dtype).float())
         x = x.float() * s[:, None, None, :]
-        x = bilinear_resize(x, low.shape[1], low.shape[2])
+        x = space.bilinear_resize(x, low.shape[1], low.shape[2])
         low_logits = conv1x1(low, self.low_classifier, self.dtype)
         high_logits = conv1x1(x, self.high_classifier, self.dtype)
         return low_logits.float() + high_logits.float()
@@ -80,4 +80,4 @@ class CardSegmentationModel(nn.Module):
         return self.head(taps["low"], taps["high"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bilinear_resize(self.logits_s8(x), x.shape[1], x.shape[2])
+        return space.bilinear_resize(self.logits_s8(x), x.shape[1], x.shape[2])

@@ -12,8 +12,11 @@ One process per GPU, as torchrun starts them:
   or its arguments, with ``nccl`` on the card and ``gloo`` on the host, and
   sets the rank's card to ``cuda:LOCAL_RANK``. Without either it returns
   False and the process runs alone, as the JAX function does.
-- :func:`process_shard` slices host-side work lists per rank, and
-  :func:`local_batch_size` is a rank's share of the global batch.
+- :func:`process_shard` slices host-side work lists per data shard, and
+  :func:`local_batch_size` is a data shard's share of the global batch. A
+  data shard is a rank, or under a layout with ``space`` or ``model`` axes
+  (``parallel/space.py``) the ranks of one data index (:func:`data_index`,
+  :func:`data_count`).
 - :func:`global_batch` / :func:`global_arrays` keep the JAX names: under
   data parallelism each rank keeps its own slice, nothing is assembled.
 - :func:`all_reduce_sum` is the sum over ranks that the global-batch
@@ -22,7 +25,8 @@ One process per GPU, as torchrun starts them:
   incoming gradients over ranks). With the gradient average of
   ``DistributedDataParallel`` this gives the global gradient, both for a
   loss made of all-reduced sums and for a local mean over equal local
-  batches.
+  batches. Under a layout with a ``model`` axis the sum runs over the
+  ranks of one model index (``parallel/space.py::batch_group``).
 
 The collectives run whenever a process group is up, also a group of one
 rank.
@@ -36,6 +40,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from mtg_card_image_segmentation_tpu_torch.parallel import space
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -94,29 +100,43 @@ def barrier() -> None:
         dist.barrier()
 
 
+def data_count() -> int:
+    """The data shards: the ranks, or the layout's hosts x data."""
+    lay = space.layout()
+    return process_count() if lay is None else lay.data_count
+
+
+def data_index() -> int:
+    """This rank's data shard: its rank, or its layout's data index."""
+    lay = space.layout()
+    return process_index() if lay is None else lay.data_index
+
+
 def process_shard(items: Sequence, *, index: Optional[int] = None,
                   count: Optional[int] = None) -> list:
-    """Deterministic per-rank slice of a host-side work list: rank i takes
-    ``items[i::count]``. A single process takes everything."""
-    index = process_index() if index is None else index
-    count = process_count() if count is None else count
+    """Deterministic per-shard slice of a host-side work list: data shard i
+    takes ``items[i::count]``. A single process takes everything."""
+    index = data_index() if index is None else index
+    count = data_count() if count is None else count
     return list(items[index::count])
 
 
 def local_batch_size(global_batch: int) -> int:
-    n = process_count()
+    n = data_count()
     if global_batch % n != 0:
-        raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
+        raise ValueError(f"global batch {global_batch} not divisible by {n} data shards")
     return global_batch // n
 
 
 def global_arrays(mesh, *local_arrays, specs=None) -> tuple:
     """Each rank's local slices as tensors on the mesh's first device: under
     data parallelism the global batch is the ranks' slices taken together,
-    and nothing is assembled. ``specs`` is accepted for the JAX signature
-    (every array is split on its batch dimension)."""
+    and nothing is assembled; under a spatial layout a rank keeps its rows
+    of its slice (``space.rows_of``). ``specs`` is accepted for the JAX
+    signature (every array is split on its batch dimension, and on H)."""
     dev = mesh.devices[0]
-    return tuple((a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))).to(dev)
+    return tuple(space.rows_of(mesh.layout, a if torch.is_tensor(a)
+                               else torch.from_numpy(np.asarray(a))).to(dev)
                  for a in local_arrays)
 
 
@@ -127,15 +147,24 @@ def global_batch(mesh, local_images, local_masks=None):
     return global_arrays(mesh, local_images, local_masks)
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of ``x`` over the ranks, with a backward (the incoming gradients
-    summed over ranks; inside an autograd ``Function``, which writes its
-    own, just the sum); ``x`` itself without a process group."""
+def reduce_size() -> int:
+    """The ranks of the global-batch sums (``space.batch_group``)."""
+    group = space.batch_group()
+    return process_count() if group is None else dist.get_world_size(group)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``group`` (default: the global-batch
+    sums' group, ``space.batch_group``: every rank, or under a layout with a
+    ``model`` axis the ranks of this rank's model index), with a backward
+    (the incoming gradients summed over the ranks; inside an autograd
+    ``Function``, which writes its own, just the sum); ``x`` itself without
+    a process group."""
     if not is_active():
         return x
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(x)
+    return all_reduce(x, group=space.batch_group() if group is None else group)
 
 
 def all_gather_cat(x: torch.Tensor) -> torch.Tensor:

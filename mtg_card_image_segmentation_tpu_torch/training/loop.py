@@ -18,6 +18,11 @@
   segmentation loss, the stats and the confusion counts are the global
   batch's; the pose step's reported loss is the mean over ranks. ``mesh``
   (``parallel/mesh.py``) must have been laid for the group's ranks.
+- A mesh whose ``space`` or ``model`` axis spans the ranks carries a layout
+  (``parallel/space.py``), and every step runs under it: each rank feeds
+  its rows of its data slice (``shard_batch``), the convs exchange halo
+  rows, and the pose eval step gathers the heatmaps' rows over the space
+  group before it decodes them.
 """
 
 from __future__ import annotations
@@ -30,22 +35,30 @@ import torch
 from mtg_card_image_segmentation_tpu_torch import losses as losses_lib
 from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
 from mtg_card_image_segmentation_tpu_torch.models.layers import FlaxBatchNorm2d
-from mtg_card_image_segmentation_tpu_torch.parallel import distributed
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed, space
 from mtg_card_image_segmentation_tpu_torch.training.state import SegTrainState
 
 
 def check_mesh(mesh) -> None:
     """A ``mesh`` given to a step must have been laid for the process
     group's ranks (the JAX steps take their sharding from it; here the
-    process group does the work, and the mesh must agree with it)."""
-    if mesh is not None and mesh.ranks != distributed.process_count():
+    process group does the work, and the mesh must agree with it), its
+    ``space`` and ``model`` axes over ranks, one device each (a rank is a
+    (data, space, model) cell of the grid)."""
+    if mesh is None:
+        return
+    if mesh.ranks != distributed.process_count():
         raise ValueError(f"the mesh was laid for {mesh.ranks} ranks, the process group "
                          f"has {distributed.process_count()}")
+    if (mesh.shape["space"] > 1 or mesh.shape["model"] > 1) and mesh.layout is None:
+        raise ValueError(f"mesh {mesh.shape}: the space and model axes are laid over "
+                         "ranks, one device each (start one process per device)")
 
 
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """A detached scalar's mean over the ranks (itself on one process)."""
-    return distributed.all_reduce_sum(x.detach()) / distributed.process_count()
+    """A detached scalar's mean over the ranks of the global-batch sums
+    (itself on one process)."""
+    return distributed.all_reduce_sum(x.detach()) / distributed.reduce_size()
 
 
 def make_train_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
@@ -57,6 +70,7 @@ def make_train_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
     until the next step."""
     check_mesh(mesh)
 
+    @space.under(mesh)
     def train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -82,6 +96,7 @@ def make_eval_step(dice_weight: float = 0.5, ce_weight: float = 0.5,
     check_mesh(mesh)
 
     @torch.no_grad()
+    @space.under(mesh)
     def eval_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor,
                   weights: Optional[torch.Tensor] = None):
         logits = state.model.eval()(images)
@@ -109,6 +124,7 @@ def make_pose_train_step(mesh=None):
     autograd left none."""
     check_mesh(mesh)
 
+    @space.under(mesh)
     def train_step(state: SegTrainState, images: torch.Tensor, targets: torch.Tensor):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=False)
@@ -119,8 +135,9 @@ def make_pose_train_step(mesh=None):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         state.apply_gradients()
-        stats = {"loss": mean_over_ranks(loss).float(),
-                 "count": torch.ones((), device=loss.device)}
+        # under a layout the loss is already the global batch's
+        loss = loss.detach() if space.layout() is not None else mean_over_ranks(loss)
+        stats = {"loss": loss.float(), "count": torch.ones((), device=loss.device)}
         return state, stats
 
     return train_step
@@ -178,18 +195,23 @@ def pose_grads_float64(model: torch.nn.Module, images: torch.Tensor,
                          images, targets)[:2]
 
 
-def make_pose_eval_step(image_hw: tuple[int, int]):
+def make_pose_eval_step(image_hw: tuple[int, int], mesh=None):
     """``step(state, images, targets) -> (stats, distances)`` in eval mode:
     the loss, and the (B, K) pixel distances between the sub-pixel decodes
     of the predicted and the target heatmaps, scaled by ``image_hw``
     (CornerMetrics, metrics.py:29-73, with the decode the evaluator and the
-    server use)."""
+    server use). Under a spatial layout the decode reads the whole
+    heatmaps, their rows gathered over the space group."""
     from mtg_card_image_segmentation_tpu_torch.ops import heatmap as hm_lib
 
+    check_mesh(mesh)
+
     @torch.no_grad()
+    @space.under(mesh)
     def eval_step(state: SegTrainState, images: torch.Tensor, targets: torch.Tensor):
         heatmaps = state.model.eval()(images)
         loss = losses_lib.heatmap_mse_loss(heatmaps, targets)
+        heatmaps, targets = space.gather_rows(heatmaps), space.gather_rows(targets)
         pred_xy, _ = hm_lib.decode_argmax_subpixel(heatmaps)
         tgt_xy, _ = hm_lib.decode_argmax_subpixel(targets)
         distances = metrics_lib.corner_distances(pred_xy, tgt_xy, image_hw)

@@ -30,7 +30,7 @@ import torch
 from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
 from mtg_card_image_segmentation_tpu_torch.config import Config
 from mtg_card_image_segmentation_tpu_torch.models import registry
-from mtg_card_image_segmentation_tpu_torch.parallel import distributed
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed, space
 from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
 from mtg_card_image_segmentation_tpu_torch.training.loop import (
     EarlyStopping,
@@ -101,7 +101,8 @@ class PoseTrainer:
         self.state = create_seg_state(model, opt_def, self.device)
         self.state.hyperparams = hyperparams
         self.train_step = make_pose_train_step(mesh=self.mesh)
-        self.eval_step = make_pose_eval_step((cfg.pose.input_height, cfg.pose.input_width))
+        self.eval_step = make_pose_eval_step((cfg.pose.input_height, cfg.pose.input_width),
+                                             mesh=self.mesh)
         self.history: Dict[str, List[float]] = {}
         self.start_epoch = 0
         self.best_metric: Optional[float] = None
@@ -134,17 +135,20 @@ class PoseTrainer:
         state keeps them), then evaluate ``val_batches`` of (images,
         targets, corners): the corner metrics over all of them and the mean
         loss."""
-        recalibrate_batch_stats(self.state, recal_batches)
-        losses: List[torch.Tensor] = []
-        all_d: List[torch.Tensor] = []
-        for images, targets, _ in val_batches:
-            stats, distances = self.eval_step(self.state, images, targets)
-            losses.append(stats["loss"])
-            all_d.append(distances)
-        all_d = distributed.all_gather_cat(torch.cat(all_d))
+        with space.use(self.mesh):
+            recalibrate_batch_stats(self.state, recal_batches)
+            losses: List[torch.Tensor] = []
+            all_d: List[torch.Tensor] = []
+            for images, targets, _ in val_batches:
+                stats, distances = self.eval_step(self.state, images, targets)
+                losses.append(stats["loss"])
+                all_d.append(distances)
+            # each batch slice once (the ranks of a space group, and model
+            # replicas, hold the same distances)
+            all_d = space.distinct(distributed.all_gather_cat(torch.cat(all_d)))
+            losses = space.distinct(distributed.all_gather_cat(torch.stack(losses)))
         m = {k: float(v) for k, v in metrics_lib.corner_metrics(all_d).items()}
-        m["loss"] = float(np.mean([float(x) for x in
-                                   distributed.all_gather_cat(torch.stack(losses))]))
+        m["loss"] = float(np.mean([float(x) for x in losses]))
         return m
 
     def train(self, train_iter, make_val_batches, make_recal_batches) -> Dict[str, List[float]]:

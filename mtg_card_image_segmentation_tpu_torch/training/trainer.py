@@ -12,7 +12,10 @@ checkpoint and ``history.json``. ``resume`` restores a checkpoint's whole
 train state and the run's history. Optional ``wandb`` logging. Under a
 process group the validation metrics are global, so every rank takes the
 same early-stopping decisions, and rank 0 alone writes the checkpoints
-and the history.
+and the history. With ``mesh.space`` or ``mesh.model`` above 1 (torchrun
+with ``--set mesh.space=2``) the ranks of one data index split the rows of
+its images (``parallel/space.py``); the pipelines made under
+``space.use(trainer.mesh)`` feed each rank its rows.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from mtg_card_image_segmentation_tpu_torch import metrics as metrics_lib
 from mtg_card_image_segmentation_tpu_torch.config import Config
 from mtg_card_image_segmentation_tpu_torch.models import registry
-from mtg_card_image_segmentation_tpu_torch.parallel import distributed, make_mesh
+from mtg_card_image_segmentation_tpu_torch.parallel import distributed, make_mesh, space
 from mtg_card_image_segmentation_tpu_torch.training import checkpoint as ckpt_lib
 from mtg_card_image_segmentation_tpu_torch.training.loop import (
     EarlyStopping,
@@ -126,7 +129,8 @@ class SegTrainer:
         """Recalibrate the BatchNorm statistics on ``recal_batches`` (the
         state keeps them), then evaluate ``val_batches`` of (images, masks)
         or (images, masks, valid rows)."""
-        state = recalibrate_batch_stats(self.state, recal_batches)
+        with space.use(self.mesh):
+            state = recalibrate_batch_stats(self.state, recal_batches)
         acc = metrics_lib.MetricsAccumulator()
         cmacc = metrics_lib.ConfusionAccumulator(self.cfg.model.num_classes)
         for batch in val_batches:

@@ -214,8 +214,12 @@ def make_yolo_train_step(num_keypoints: int = 4, mesh=None):
     Under a process group (``training/loop.py``) each rank feeds its slice
     of the global batch: the loss is a mean of per-sample terms, so over
     equal local batches DDP's gradient average is the global gradient;
-    ``parts`` are the means over the ranks."""
+    ``parts`` are the means over the ranks. The YOLO trainer lays a
+    data-only mesh, as the JAX one does (``train_yolo.py``): a mesh with
+    ``space`` or ``model`` axes over ranks is refused."""
     check_mesh(mesh)
+    if mesh is not None and mesh.layout is not None:
+        raise ValueError(f"mesh {mesh.shape}: the YOLO step is data-parallel only")
 
     def train_step(state: SegTrainState, images: torch.Tensor, corners: torch.Tensor):
         state.model.train()

@@ -344,3 +344,21 @@ def count_parameters(params: Dict[str, Any]) -> int:
     for v in params.values():
         total += count_parameters(v) if isinstance(v, dict) else int(np.prod(np.shape(v)))
     return total
+
+
+def model_size_mb(variables) -> float:
+    """Size of all variables in MB (1024^2 bytes): a module's parameters
+    and its BatchNorm running statistics (``num_batches_tracked``, which the
+    Flax tree lacks, is left out), or every leaf of a Flax-layout tree such
+    as ``{"params": ..., "batch_stats": ...}`` (the JAX function's count)."""
+    if isinstance(variables, torch.nn.Module):
+        leaves = [p for p in variables.parameters()]
+        leaves += [b for n, b in variables.named_buffers() if b.is_floating_point()]
+        total = sum(t.numel() * t.element_size() for t in leaves)
+    else:
+        def walk(tree):
+            for v in tree.values():
+                yield from (walk(v) if isinstance(v, dict) else (np.asarray(v),))
+
+        total = sum(a.size * a.itemsize for a in walk(variables))
+    return total / 1024 / 1024

@@ -1,12 +1,13 @@
-"""The evaluator's prediction panels (reference train/evaluate.py:170-238;
-copy of ``plot_predictions`` from the JAX package's ``utils/plots.py``; its
-training-history plot waits for ``train_seg_torch.py --plot``).
-Headless matplotlib (Agg), imported only when a plot is drawn."""
+"""The training-history panels and the evaluator's prediction panels
+(reference train/evaluate.py:139-238; copies of the JAX package's
+``utils/plots.py``, used by ``train_seg_torch.py --plot`` and the
+evaluation CLI). Headless matplotlib (Agg), imported only when a plot is
+drawn."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -18,6 +19,32 @@ def _plt():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def plot_training_history(history: Dict[str, List[float]], out_path: str) -> str:
+    """2x2 panel: loss, mIoU, dice, pixel accuracy (train vs val)."""
+    plt = _plt()
+    fig, axes = plt.subplots(2, 2, figsize=(12, 8))
+    panels = [
+        ("loss", "Loss"),
+        ("mean_iou", "Mean IoU"),
+        ("mean_dice", "Mean Dice"),
+        ("pixel_accuracy", "Pixel Accuracy"),
+    ]
+    for ax, (key, title) in zip(axes.ravel(), panels):
+        for prefix in ("train", "val"):
+            k = f"{prefix}_{key}"
+            if k in history and history[k]:
+                ax.plot(history[k], label=prefix)
+        ax.set_title(title)
+        ax.set_xlabel("epoch")
+        ax.grid(alpha=0.3)
+        ax.legend()
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+    return out_path
 
 
 def plot_predictions(

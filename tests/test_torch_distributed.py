@@ -16,7 +16,7 @@ parameters after the step. The seg step also agrees with the JAX package's data-
 ``tests/test_torch_train.py``'s tolerances. Then ``process_shard``, the file
 pipeline's per-rank orders against the JAX pipeline's, checkpoints across
 topologies, batch-split serving over a two-device CPU mesh, and the mesh's
-refusals.
+axes and refusals.
 """
 
 import os
@@ -338,16 +338,20 @@ def test_batch_split_serving_gives_the_unsplit_outputs():
 
 
 def test_mesh_and_initialize_refuse_what_is_not_ported(monkeypatch):
-    """The spatial and model axes raise and name the queue; a mesh that
-    does not cover its shards raises; without torchrun's environment
+    """The spatial and model axes are laid, as the JAX mesh's (over ranks
+    they carry a layout: ``tests/test_torch_space.py``); a mesh that does
+    not cover its shards raises; without torchrun's environment
     ``initialize`` joins nothing, a one-device mesh is trivial and a rank's
     batch is kept as it is; a step refuses a mesh laid for another
     world."""
     from mtg_card_image_segmentation_tpu_torch.training.loop import make_train_step
 
     for kw in ({"space": 2}, {"model": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            make_mesh(devices=["cpu", "cpu"], **kw)
+        mesh = make_mesh(devices=["cpu", "cpu"], **kw)
+        assert mesh.shape == {"hosts": 1, "data": 1, "space": kw.get("space", 1),
+                              "model": kw.get("model", 1)}
+        assert mesh.size == 2 and not is_trivial(mesh)
+        assert jax_make_mesh(devices=jax.devices()[:2], **kw).shape == mesh.shape
     with pytest.raises(ValueError, match="local devices"):
         make_mesh(data=3, devices=["cpu", "cpu"])
     for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):

@@ -201,13 +201,15 @@ _JAX_IMPORT = re.compile(
 
 CLIS = ("train_seg_torch", "evaluate_seg_torch", "prune_seg_torch", "export_seg_torch",
         "seg_inference_torch", "pose_inference_torch", "train_pose_torch",
-        "evaluate_pose_torch", "export_pose_torch")
-TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch", "distributed_step_torch")
+        "evaluate_pose_torch", "export_pose_torch", "generate_dataset_torch",
+        "visualize_augmentations_torch", "generate_examples_torch", "graft_entry_torch")
+TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch", "distributed_step_torch",
+         "profile_blocks_torch")
 
 
 def test_port_sources_import_no_jax():
-    """No port source, nor chip_smoke.py, nor the card's three tools, nor
-    the port's CLIs import jax, flax, optax, orbax or the JAX package,
+    """No port source, nor chip_smoke.py, nor the card's tools, nor the
+    port's CLIs and graft entry import jax, flax, optax, orbax or the JAX package,
     name a module of it without ``_torch``, or import the Orbax converter
     (the one tool that needs JAX)."""
     outside = [REPO / "chip_smoke.py", *(REPO / "tools" / f"{t}.py" for t in TOOLS),
@@ -226,7 +228,9 @@ def test_port_sources_import_no_jax():
             "evaluation/__init__.py", "evaluation/segmentation.py", "evaluation/worstk.py",
             "utils/plots.py", "compression/prune.py", "compression/__init__.py",
             "evaluation/pose.py", "training/pose_trainer.py",
-            "serving/artifact_backend.py"} <= names
+            "serving/artifact_backend.py", "parallel/space.py", "data/aug_policies.py",
+            "data/corners.py", "datagen/downloaders.py", "datagen/inpaint.py",
+            "datagen/watchdog.py", "utils/profiling.py"} <= names
     for f in files:
         text = f.read_text()
         assert not _JAX_IMPORT.search(text), f
@@ -238,11 +242,12 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module, chip_smoke.py, the card's three tools
+    """Every port module, chip_smoke.py, the card's tools
     (tools/stencil_floor_torch.py, tools/fp32_conv_accuracy_torch.py,
-    tools/distributed_step_torch.py) and
-    the port's nine CLIs import in a process where importing jax, flax,
-    orbax, optax or the JAX package fails."""
+    tools/distributed_step_torch.py, tools/profile_blocks_torch.py), the
+    port's CLIs and its graft entry (graft_entry_torch.py) import in a
+    process where importing jax, flax, orbax, optax or the JAX package
+    fails."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in PORT.rglob("*.py")

@@ -16,6 +16,7 @@ Examples:
       pose.input_width=96 pose.heatmap_height=16 pose.heatmap_width=24 \\
       data.batch_size=2 train.num_epochs=1 train.steps_per_epoch=2
   torchrun --nproc_per_node=N train_pose_torch.py   # data-parallel, one rank per card
+  torchrun --nproc_per_node=2 train_pose_torch.py --set mesh.space=2   # rows split over 2
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     from mtg_card_image_segmentation_tpu_torch.config import Config, pose_default_config
     from mtg_card_image_segmentation_tpu_torch.data.pipeline import PoseSyntheticPipeline
-    from mtg_card_image_segmentation_tpu_torch.parallel import distributed
+    from mtg_card_image_segmentation_tpu_torch.parallel import distributed, space
     from mtg_card_image_segmentation_tpu_torch.training.pose_trainer import PoseTrainer
     from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 
@@ -57,26 +58,29 @@ def main(argv: Optional[List[str]] = None) -> dict:
     trainer = PoseTrainer(cfg, device=device)
     trainer.log.info(f"device {device}"
                      + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    p = cfg.pose
-    shape = (cfg.data.batch_size, p.input_height, p.input_width, p.heatmap_height,
-             p.heatmap_width)
-    train_iter = iter(PoseSyntheticPipeline(*shape, sigma=p.gaussian_sigma,
-                                            augment=cfg.data.augment, seed=cfg.train.seed,
-                                            device=device))
-    # validation: a clean (unaugmented) stream from a fixed seed
-    val_pipe = PoseSyntheticPipeline(*shape, sigma=p.gaussian_sigma, augment=None,
-                                     seed=VAL_SEED, device=device)
+    # under a mesh with space or model axes the pipelines feed each rank
+    # its rows of its data shard (parallel/space.py)
+    with space.use(trainer.mesh):
+        p = cfg.pose
+        shape = (cfg.data.batch_size, p.input_height, p.input_width, p.heatmap_height,
+                 p.heatmap_width)
+        train_iter = iter(PoseSyntheticPipeline(*shape, sigma=p.gaussian_sigma,
+                                                augment=cfg.data.augment, seed=cfg.train.seed,
+                                                device=device))
+        # validation: a clean (unaugmented) stream from a fixed seed
+        val_pipe = PoseSyntheticPipeline(*shape, sigma=p.gaussian_sigma, augment=None,
+                                         seed=VAL_SEED, device=device)
 
-    def make_val_batches(n: int = 6):
-        return list(itertools.islice(iter(val_pipe), n))
+        def make_val_batches(n: int = 6):
+            return list(itertools.islice(iter(val_pipe), n))
 
-    def make_recal_batches(n: int = 4):
-        return [b[0] for b in itertools.islice(iter(val_pipe), n)]
+        def make_recal_batches(n: int = 4):
+            return [b[0] for b in itertools.islice(iter(val_pipe), n)]
 
-    if args.resume is not None:
-        trainer.resume(None if args.resume == "__latest__" else args.resume)
+        if args.resume is not None:
+            trainer.resume(None if args.resume == "__latest__" else args.resume)
 
-    return trainer.train(train_iter, make_val_batches, make_recal_batches)
+        return trainer.train(train_iter, make_val_batches, make_recal_batches)
 
 
 if __name__ == "__main__":

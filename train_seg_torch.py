@@ -12,11 +12,16 @@ Examples:
 
   # resume from the latest checkpoint (or --resume <name>)
   python train_seg_torch.py --resume
+  # and write <train.log_dir>/training_history.png (needs matplotlib)
+  python train_seg_torch.py --plot
 
   # data-parallel over N cards of one host, one process per card
   # (data.batch_size is the global batch; nccl on the card, gloo with
   # --device cpu)
   torchrun --nproc_per_node=N train_seg_torch.py --set data.batch_size=64
+  # spatially sharded: the rows of every image split over 2 ranks
+  # (torchrun --nproc_per_node=2 ... --device cpu on the host: gloo)
+  torchrun --nproc_per_node=2 train_seg_torch.py --set mesh.space=2
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--source", choices=["synthetic", "files"], default="synthetic")
     parser.add_argument("--resume", nargs="?", const="__latest__", default=None)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--plot", action="store_true",
+                        help="write the history plot (needs matplotlib)")
     args = parser.parse_args(argv)
 
     import torch
@@ -42,7 +49,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from mtg_card_image_segmentation_tpu_torch.config import Config, default_config
     from mtg_card_image_segmentation_tpu_torch.data.pipeline import rank_seed
     from mtg_card_image_segmentation_tpu_torch.data.preprocess import normalize_only
-    from mtg_card_image_segmentation_tpu_torch.parallel import distributed
+    from mtg_card_image_segmentation_tpu_torch.parallel import distributed, space
     from mtg_card_image_segmentation_tpu_torch.training.trainer import SegTrainer
     from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
 
@@ -59,92 +66,102 @@ def main(argv: Optional[List[str]] = None) -> dict:
     trainer = SegTrainer(cfg, device=device)
     trainer.log.info(f"device {device}"
                      + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    h, w = cfg.model.input_height, cfg.model.input_width
-    batch = cfg.data.batch_size
+    # under a mesh with space or model axes the pipelines feed each rank
+    # its rows of its data shard (parallel/space.py)
+    with space.use(trainer.mesh):
+        h, w = cfg.model.input_height, cfg.model.input_width
+        batch = cfg.data.batch_size
 
-    if args.source == "synthetic":
-        from mtg_card_image_segmentation_tpu_torch.data.pipeline import SyntheticPipeline
-        from mtg_card_image_segmentation_tpu_torch.data.synthetic import (
-            load_asset_bank,
-            synthetic_batch,
-        )
+        if args.source == "synthetic":
+            from mtg_card_image_segmentation_tpu_torch.data.pipeline import SyntheticPipeline
+            from mtg_card_image_segmentation_tpu_torch.data.synthetic import (
+                load_asset_bank,
+                synthetic_batch,
+            )
 
-        assets = None
-        if cfg.data.texture_dir or cfg.data.background_dir or cfg.data.hdri_dir:
-            assets = load_asset_bank(cfg.data.texture_dir or None, cfg.data.background_dir or None,
-                                     bg_hw=(h, w), hdri_dir=cfg.data.hdri_dir or None,
-                                     device=device)
-            trainer.log.info(f"asset bank: {assets.textures.shape[0]} textures, "
-                             f"{assets.backgrounds.shape[0]} backgrounds, "
-                             f"{assets.hdris.shape[0]} HDRIs")
+            assets = None
+            if cfg.data.texture_dir or cfg.data.background_dir or cfg.data.hdri_dir:
+                assets = load_asset_bank(cfg.data.texture_dir or None, cfg.data.background_dir or None,
+                                         bg_hw=(h, w), hdri_dir=cfg.data.hdri_dir or None,
+                                         device=device)
+                trainer.log.info(f"asset bank: {assets.textures.shape[0]} textures, "
+                                 f"{assets.backgrounds.shape[0]} backgrounds, "
+                                 f"{assets.hdris.shape[0]} HDRIs")
 
-        train_iter = iter(SyntheticPipeline(batch, h, w, augment=cfg.data.augment,
-                                            seed=cfg.train.seed, assets=assets,
-                                            real_prob=cfg.data.real_asset_prob, device=device))
+            train_iter = iter(SyntheticPipeline(batch, h, w, augment=cfg.data.augment,
+                                                seed=cfg.train.seed, assets=assets,
+                                                real_prob=cfg.data.real_asset_prob, device=device))
 
-        val_batch = distributed.local_batch_size(batch)
+            val_batch = distributed.local_batch_size(batch)
 
-        def _val_batch(seed: int):
-            # made afresh from its seed, so every epoch sees the same images;
-            # with a bank, validation covers the real-asset domain too; each
-            # rank renders its share from its own seed
-            gen = torch.Generator(device=device).manual_seed(rank_seed(seed))
-            b = synthetic_batch(gen, val_batch, h, w, 0.09, assets, cfg.data.real_asset_prob)
-            return normalize_only(b.image), b.mask
+            def _val_batch(seed: int):
+                # made afresh from its seed, so every epoch sees the same images;
+                # with a bank, validation covers the real-asset domain too; each
+                # rank renders its share from its own seed
+                gen = torch.Generator(device=device).manual_seed(rank_seed(seed))
+                b = synthetic_batch(gen, val_batch, h, w, 0.09, assets, cfg.data.real_asset_prob)
+                return space.shard_rows(normalize_only(b.image)), space.shard_rows(b.mask)
 
-        def make_val_batches(n: int = 8, seed: int = 10_000):
-            return [_val_batch(seed + i) for i in range(n)]
+            def make_val_batches(n: int = 8, seed: int = 10_000):
+                return [_val_batch(seed + i) for i in range(n)]
 
-        def make_recal_batches(n: int = 6, seed: int = 20_000):
-            return [_val_batch(seed + i)[0] for i in range(n)]
+            def make_recal_batches(n: int = 6, seed: int = 20_000):
+                return [_val_batch(seed + i)[0] for i in range(n)]
 
-    else:
-        from mtg_card_image_segmentation_tpu_torch.data.dataset import CardSegmentationDataset
-        from mtg_card_image_segmentation_tpu_torch.data.pipeline import FilePipeline
+        else:
+            from mtg_card_image_segmentation_tpu_torch.data.dataset import CardSegmentationDataset
+            from mtg_card_image_segmentation_tpu_torch.data.pipeline import FilePipeline
 
-        root = cfg.data.dataset_root
+            root = cfg.data.dataset_root
 
-        def split(name):
-            return CardSegmentationDataset(os.path.join(root, name, "images"),
-                                           os.path.join(root, name, "masks"))
+            def split(name):
+                return CardSegmentationDataset(os.path.join(root, name, "images"),
+                                               os.path.join(root, name, "masks"))
 
-        train_ds, test_ds = split(cfg.data.train_split), split(cfg.data.test_split)
-        train_pipe = FilePipeline(train_ds, batch, h, w, augment=cfg.data.augment, shuffle=True,
-                                  seed=cfg.train.seed, prefetch=cfg.data.prefetch, device=device)
-        if cfg.train.steps_per_epoch is None:
-            # as in train_seg.py: the epoch follows the dataset, the schedule
-            # keeps the length SegTrainer derived from the reference's size
-            trainer.steps_per_epoch = train_pipe.steps_per_epoch
+            train_ds, test_ds = split(cfg.data.train_split), split(cfg.data.test_split)
+            train_pipe = FilePipeline(train_ds, batch, h, w, augment=cfg.data.augment, shuffle=True,
+                                      seed=cfg.train.seed, prefetch=cfg.data.prefetch, device=device)
+            if cfg.train.steps_per_epoch is None:
+                # as in train_seg.py: the epoch follows the dataset, the schedule
+                # keeps the length SegTrainer derived from the reference's size
+                trainer.steps_per_epoch = train_pipe.steps_per_epoch
 
-        def forever(pipe):
-            while True:
-                for imgs, msks, _valid in pipe:
-                    yield imgs, msks  # drop_last: always full batches
+            def forever(pipe):
+                while True:
+                    for imgs, msks, _valid in pipe:
+                        yield imgs, msks  # drop_last: always full batches
 
-        train_iter = forever(train_pipe)
+            train_iter = forever(train_pipe)
 
-        def make_val_batches():
-            # the test split unshuffled, its tail batch padded; the trainer
-            # weights the padding out by ``valid``. Over several ranks the
-            # tail is dropped (the JAX CLI's rule: per-rank padding is not
-            # accounted)
-            return iter(FilePipeline(test_ds, batch, h, w, augment=None, shuffle=False,
-                                     drop_last=distributed.process_count() > 1,
-                                     device=device))
+            def make_val_batches():
+                # the test split unshuffled, its tail batch padded; the trainer
+                # weights the padding out by ``valid``. Over several ranks the
+                # tail is dropped (the JAX CLI's rule: per-rank padding is not
+                # accounted)
+                return iter(FilePipeline(test_ds, batch, h, w, augment=None, shuffle=False,
+                                         drop_last=distributed.process_count() > 1,
+                                         device=device))
 
-        def make_recal_batches(n: int = 6):
-            pipe = FilePipeline(train_ds, batch, h, w, augment=None, shuffle=True,
-                                device=device)
-            it = iter(pipe)
-            try:
-                return [imgs for imgs, *_ in itertools.islice(it, n)]
-            finally:
-                it.close()
+            def make_recal_batches(n: int = 6):
+                pipe = FilePipeline(train_ds, batch, h, w, augment=None, shuffle=True,
+                                    device=device)
+                it = iter(pipe)
+                try:
+                    return [imgs for imgs, *_ in itertools.islice(it, n)]
+                finally:
+                    it.close()
 
-    if args.resume is not None:
-        trainer.resume(None if args.resume == "__latest__" else args.resume)
+        if args.resume is not None:
+            trainer.resume(None if args.resume == "__latest__" else args.resume)
 
-    return trainer.train(train_iter, make_val_batches, make_recal_batches)
+        history = trainer.train(train_iter, make_val_batches, make_recal_batches)
+    if args.plot and distributed.process_index() == 0:
+        from mtg_card_image_segmentation_tpu_torch.utils.plots import plot_training_history
+
+        out = plot_training_history(
+            history, os.path.join(cfg.train.log_dir, "training_history.png"))
+        print(f"history plot -> {out}")
+    return history
 
 
 if __name__ == "__main__":
