@@ -157,7 +157,11 @@ STENCIL_TOL = (4e-5, 1e-6)
 # shapes), not measured by this run; printed in the kernel lines only, as
 # prev_ms_pr3_recorded
 PREV_MS = {"fused_mask_decode": 0.300, "fused_tail_chain": 7.141,
-           "fused_inverted_residual": 2.633}
+           "fused_inverted_residual": 2.633,
+           "stencil_floor": {"pass": 0.58, "arith": 1.62, "full": 2.11}}
+# stencil_floor's ragged case: rows that fill no strip, W not a multiple of 16,
+# three channel slices; inputs drawn as the stencil tool draws its own
+STENCIL_RAGGED = ((3, 20, 48, 64), 192, 5, 2)
 # the same, for the kernels redesigned or changed after that run, from the
 # run that preceded their change (same card and shapes), printed as
 # prev_ms_pr4_recorded
@@ -320,6 +324,10 @@ def phase_build():
                             "spill_loads": int(m.group(4))})
     if not kernels:
         fail("no ptxas report from the build")
+    spilled = [k for k in kernels if k["fn"].startswith("stencil_floor_kernel")
+               and (k["spill_stores"] or k["spill_loads"])]
+    if spilled:
+        fail(f"stencil_floor_kernel spills registers: {spilled}")
     emit({"phase": "build", "seconds": round(seconds, 3),
           "per_source_seconds": {k: round(v["seconds"], 3) for k, v in info.items()},
           "kernels": kernels})
@@ -655,9 +663,13 @@ def stencil_tool():
 
 
 def phase_stencil_kernel(torch):
-    """stencil_floor in its three modes at the tool's shape against its
-    plain version, with each mode's time and bound; the kernels line reports
-    ``full``, the real stencil, beside the one stock composition of it."""
+    """stencil_floor in its three modes at the tool's shape and at a ragged
+    shape against its plain version, with each mode's time and bound (the
+    bound with the products at the float32 rate beside it, as before the
+    packed products); the launch plan's shared memory against the kernel's
+    own count; the kernels line reports ``full``, the real stencil, beside
+    the one stock composition of it."""
+    import numpy as np
     import torch.nn.functional as F
 
     from mtg_card_image_segmentation_tpu_torch.ops.kernels import stencil_floor as sf
@@ -665,26 +677,49 @@ def phase_stencil_kernel(torch):
     tool = stencil_tool()
     x, w_exp, w_dw = tool.make_inputs(SEED, "cuda")
     k, dil, cexp = tool.K, tool.DIL, tool.CEXP
-    per_mode = {}
-    for mode in sf.MODES:
+
+    def gate(x, w_exp, w_dw, mode, k, dil, what):
         got = sf.stencil_floor(x, w_exp, w_dw, mode, k, dil)
         want = sf.stencil_floor_plain(x, w_exp, w_dw, mode, k, dil)
         torch.cuda.synchronize()
         d = (got - want).abs()
         err, mean_err = float(d.max()), float(d.mean())
+        if tuple(got.shape) != (*x.shape[:3], 1) or got.dtype != torch.float32:
+            fail(f"stencil_floor[{mode}] {what}: output {got.dtype} {tuple(got.shape)}")
+        if err > STENCIL_TOL[0] or mean_err > STENCIL_TOL[1]:
+            fail(f"stencil_floor[{mode}] {what}: max|d| {err}, mean|d| {mean_err} above "
+                 f"{STENCIL_TOL}")
+        return {"max_abs_err": err, "mean_abs_err": mean_err,
+                "max_abs_ref": float(want.abs().max())}
+
+    plans = {}
+    for name, (shape, e, kk, d) in (("tool", ((tool.B, tool.H, tool.W, tool.CIN), cexp, k, dil)),
+                                    ("ragged", STENCIL_RAGGED)):
+        plan = sf.stencil_plan(shape, e, kk, d)
+        own = sf.kernel_smem_bytes(shape[1], shape[2], shape[3], kk)
+        if own != plan["smem_bytes"]:
+            fail(f"stencil_floor plan at {shape}: {plan['smem_bytes']} bytes of shared memory, "
+                 f"the kernel lays out {own}")
+        plans[name] = {key: plan[key] for key in ("ctas", "threads", "slices", "chunks",
+                                                   "smem_bytes", "strips", "tasks")}
+    per_mode = {}
+    for mode in sf.MODES:
         bnd, by = sf.bound_ms(tuple(x.shape), cexp, mode, k)  # the same H100 peaks
         per_mode[mode] = {
-            "max_abs_err": err, "mean_abs_err": mean_err,
-            "max_abs_ref": float(want.abs().max()),
+            **gate(x, w_exp, w_dw, mode, k, dil, "tool shape"),
             "ms": cuda_ms(lambda: sf.stencil_floor(x, w_exp, w_dw, mode, k, dil), 20),
             "plain_ms": cuda_ms(lambda: sf.stencil_floor_plain(x, w_exp, w_dw, mode, k, dil),
                                 2, 1),
-            "bound_ms": bnd, "bound_by": by}
-        if tuple(got.shape) != (*x.shape[:3], 1) or got.dtype != torch.float32:
-            fail(f"stencil_floor[{mode}] output {got.dtype} {tuple(got.shape)}")
-        if err > STENCIL_TOL[0] or mean_err > STENCIL_TOL[1]:
-            fail(f"stencil_floor[{mode}]: max|d| {err}, mean|d| {mean_err} above {STENCIL_TOL}")
-        del got, want, d
+            "bound_ms": bnd, "bound_by": by,
+            "bound_fp32_ms": sf.bound_ms(tuple(x.shape), cexp, mode, k,
+                                         packed_products=False)[0]}
+    shape, e, rk, rd = STENCIL_RAGGED
+    rng = np.random.default_rng(SEED)
+    rx = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", torch.bfloat16)
+    rw = torch.from_numpy((rng.standard_normal((shape[-1], e)) * 0.05).astype(np.float32)).cuda()
+    rdw = torch.from_numpy((rng.standard_normal((rk * rk, e)) * 0.05).astype(np.float32)).cuda()
+    ragged = {mode: gate(rx, rw, rdw, mode, rk, rd, f"ragged {shape} E={e}")
+              for mode in sf.MODES}
     w_bf = w_exp.to(torch.bfloat16)
     taps = w_dw.to(torch.bfloat16).reshape(k, k, cexp).permute(2, 0, 1)[:, None].contiguous()
 
@@ -698,9 +733,13 @@ def phase_stencil_kernel(torch):
     full = per_mode["full"]
     row = {"ms": full["ms"], "plain_ms": full["plain_ms"], "library_ms": cuda_ms(library, 10),
            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-           "max_abs_err": max(m["max_abs_err"] for m in per_mode.values())}
+           "max_abs_err": max(m["max_abs_err"] for m in [*per_mode.values(),
+                                                         *ragged.values()])}
     emit({"phase": "kernel", "name": "stencil_floor", "shape": list(x.shape),
           "expanded": cexp, "k": k, "dilation": dil, "modes": per_mode,
+          "ragged": {"shape": list(shape), "expanded": e, "k": rk, "dilation": rd,
+                     "modes": ragged},
+          "plan": plans, "prev_ms_pr3_recorded": PREV_MS["stencil_floor"],
           "full_minus_pass_ms": full["ms"] - per_mode["pass"]["ms"],
           "arith_minus_pass_ms": per_mode["arith"]["ms"] - per_mode["pass"]["ms"],
           "library_max_abs_err": lib_err, "tolerance": list(STENCIL_TOL), **row})

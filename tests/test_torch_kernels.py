@@ -530,8 +530,13 @@ def test_stencil_floor_modes_differ_and_full_is_the_depthwise():
     # the bound at the tool's shape: operations, and `pass` below the others
     full, by = bound_ms((128, 32, 32, 160), 960, "full")
     assert by == "operations" and full > bound_ms((128, 32, 32, 160), 960, "pass")[0]
-    # 25 multiplies, 24 adds and the add into the channel sum per expanded value
-    assert full == pytest.approx(128 * 1024 * 960 * 25 * 2 / 67e12 * 1e3, rel=1e-12)
+    # per expanded value 25 packed bf16 products (134 TFLOP/s), then 24 adds
+    # and the add into the channel sum in float32 (67 TFLOP/s)
+    assert full == pytest.approx(128 * 1024 * 960 * (25 / 134e12 + 25 / 67e12) * 1e3,
+                                 rel=1e-12)
+    # the products at the float32 rate: the bound before the packed products
+    assert bound_ms((128, 32, 32, 160), 960, "full", packed_products=False)[0] == pytest.approx(
+        128 * 1024 * 960 * 25 * 2 / 67e12 * 1e3, rel=1e-12)
 
 
 def test_stencil_tool_fails_without_a_card():
@@ -568,3 +573,199 @@ def test_stencil_tool_fails_without_a_card():
         _check(tx[:1], tw, td[:9], "full", 5)
     with pytest.raises(ValueError, match="bfloat16"):
         _check(tx[:1].float(), tw, td, "full", 5)
+
+
+# ---- stencil_floor's launch plan and its term chain, emulated -------------
+
+STENCIL_TOOL_SHAPE = ((128, 32, 32, 160), 960, 5, 2)
+# rows that fill no strip, more than one channel slice, W not a multiple of
+# 16; then other dilations, kernel sizes and odd sizes
+STENCIL_RAGGED = [((3, 20, 48, 64), 192, 5, 2), ((2, 13, 32, 16), 128, 5, 3),
+                  ((1, 7, 16, 16), 64, 5, 1), ((2, 9, 24, 32), 64, 5, 2),
+                  ((2, 12, 8, 32), 64, 3, 1)]
+
+
+def test_stencil_plan_at_the_tools_shape():
+    """One CTA of 512 threads per image, under the 227 KB a CTA may take
+    (the y slice 128 KB, two x chunks of 128 pixels x 160 channels, the tap
+    weights, one float per pixel): one CTA per SM, as the whole-image tile
+    needs, and two chain strips of 4 rows per warp."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import (
+        MAX_SMEM,
+        stencil_plan,
+    )
+
+    shape, e, k, d = STENCIL_TOOL_SHAPE
+    plan = stencil_plan(shape, e, k, d)
+    assert MAX_SMEM == 227 * 1024
+    assert plan["smem_bytes"] == 32 * 32 * 64 * 2 + 2 * 128 * 160 * 2 + 25 * 32 * 4 + 32 * 32 * 4
+    assert plan["smem_bytes"] <= MAX_SMEM < 2 * plan["smem_bytes"]
+    assert (plan["ctas"], plan["threads"], plan["ctas_per_sm"]) == (128, 512, 1)
+    assert (plan["slices"], plan["chunks"], plan["col_groups"]) == (15, 8, 4)
+    assert plan["tasks"] == 2 * plan["threads"] // 32
+    assert plan["strip_rows"] == [list(range(r0 + r, r0 + 8, 2)) for r0 in range(0, 32, 8)
+                                  for r in (0, 1)]
+
+
+@pytest.mark.parametrize("shape,e,k,d", STENCIL_RAGGED)
+def test_stencil_plan_covers_every_output_row(shape, e, k, d):
+    """Every output row lies in exactly one chain strip (rows past the
+    image only pad a last strip), every column in one group of 8, the strip
+    rows step by the dilation, and the budget holds."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import (
+        MAX_SMEM,
+        STRIP_PAIRS,
+        stencil_plan,
+    )
+
+    b, h, w, _ = shape
+    plan = stencil_plan(shape, e, k, d)
+    rows = [r for strip in plan["strip_rows"] for r in strip]
+    assert sorted(r for r in rows if r < h) == list(range(h))
+    for strip in plan["strip_rows"]:
+        assert len(strip) == 2 * STRIP_PAIRS and all(
+            b_ - a == d for a, b_ in zip(strip, strip[1:]))
+    assert (plan["col_groups"] - 1) * 8 < w <= plan["col_groups"] * 8
+    assert plan["tasks"] == len(plan["strip_rows"]) * plan["col_groups"]
+    assert plan["ctas"] == b and plan["smem_bytes"] <= MAX_SMEM
+    assert plan["slices"] == e // 64 and plan["chunks"] == -(-h * w // 128)
+
+
+@pytest.mark.parametrize("shape,e,k,why", [
+    ((1, 8, 12, 16), 64, 5, "W a multiple of 8"),
+    ((1, 8, 8, 24), 64, 5, "multiple of 16"), ((1, 8, 8, 176), 64, 5, "up to 160"),
+    ((1, 8, 8, 16), 96, 5, "multiple of 64"), ((1, 8, 8, 16), 64, 7, "k 3 or 5"),
+    ((1, 48, 48, 160), 64, 5, "shared memory")])
+def test_stencil_floor_refuses_what_the_tiling_cannot_take(shape, e, k, why):
+    """Shapes the kernel's tiling does not take raise ValueError from the
+    plan and from the wrapper for a tensor that is not on the CPU (checked
+    on the meta device, before the device check); a shape it takes reaches
+    the device check."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import (
+        stencil_floor,
+        stencil_plan,
+    )
+
+    with pytest.raises(ValueError, match=why):
+        stencil_plan(shape, e, k, 2)
+    meta = dict(device="meta")
+    x = torch.empty(shape, dtype=torch.bfloat16, **meta)
+    w_exp = torch.empty((shape[-1], e), dtype=torch.float32, **meta)
+    w_dw = torch.empty((k * k, e), dtype=torch.float32, **meta)
+    with pytest.raises(ValueError, match=why):
+        stencil_floor(x, w_exp, w_dw, "full", k, 2)
+    x = torch.empty((1, 8, 8, 16), dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        stencil_floor(x, torch.empty((16, 64), **meta), torch.empty((25, 64), **meta), "full")
+
+
+def _word_of(col, q, t):
+    """csrc/stencil_floor.cu::word_of: the y tile's word of channels 8q + 2t,
+    + 1 of column ``col`` within a row (chunks XOR-swizzled by the column)."""
+    return col * 32 + ((q ^ (col & 7)) << 2) + t
+
+
+def _tap_pairs(k):
+    """The kernel's order of the k*k taps in MMAs: two tap columns at a
+    time, taps (ky, kx0 + u) numbered e = ky * ncol + u, two per MMA."""
+    mmas = []
+    for kx0 in range(0, k, 2):
+        ncol = 2 if kx0 + 1 < k else 1
+        nt = k * ncol
+        for m in range((nt + 1) // 2):
+            mmas.append([(e // ncol) * k + kx0 + e % ncol for e in (2 * m, 2 * m + 1) if e < nt])
+    return mmas
+
+
+def _emulate_stencil_kernel(x, w_exp, w_dw, mode, k, d):
+    """The kernel's term chain with its own index maps: y stored into a tile
+    by ``_word_of`` and read back from it, the chain strips of
+    ``stencil_plan``, the window rows and columns of each pixel pair, the
+    taps in ``_tap_pairs`` order; every product rounded to bf16 (the exact
+    product of two bf16 values, as ``mul.rn.bf16x2``), sums in float64."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import (
+        STRIP_PAIRS,
+        stencil_plan,
+    )
+
+    bf = torch.bfloat16
+    b, h, w, _ = x.shape
+    e = w_exp.shape[1]
+    plan = stencil_plan(tuple(x.shape), e, k, d)
+    y = (x.float() @ w_exp.to(bf).float()).to(bf).float().numpy()
+    taps = w_dw.to(bf).float().numpy()
+    p = (k - 1) // 2
+    g = np.arange(8)[:, None, None]
+    t = np.arange(4)[None, :, None]
+    q = np.arange(8)[None, None, :]
+    cols = np.arange(w)[:, None, None]
+    words = _word_of(cols, np.arange(8)[None, :, None], np.arange(4)[None, None, :])
+    chans = 8 * np.arange(8)[None, :, None] + 2 * np.arange(4)[None, None, :]
+    out = np.zeros((b, h, w))
+    for img in range(b):
+        for s in range(plan["slices"]):
+            ys = y[img, :, :, 64 * s:64 * (s + 1)]
+            tile = np.full((h, 32 * w, 2), np.nan, np.float32)
+            for half in range(2):
+                tile[:, words.reshape(-1), half] = ys[:, np.broadcast_to(cols, words.shape).reshape(-1),
+                                                      np.broadcast_to(chans, words.shape).reshape(-1) + half]
+            assert not np.isnan(tile).any()  # the map is onto: every word written once
+            wt = np.stack([taps[:, 64 * s + 8 * q + 2 * t + half] for half in range(2)], -1)
+
+            def ld(r, c):  # (8, 4, 8, 2): lane (g, t), group q; zero outside the image
+                if not 0 <= r < h:
+                    return np.zeros((8, 4, 8, 2), np.float32)
+                cb = np.broadcast_to(c, (8, 4, 8))
+                ok = (cb >= 0) & (cb < w)
+                v = tile[r, _word_of(np.where(ok, cb, 0), q, t)]
+                return np.where(ok[..., None], v, 0.0)
+
+            for strip in plan["strip_rows"]:
+                for cg in range(plan["col_groups"]):
+                    col = cg * 8 + g
+                    for i in range(STRIP_PAIRS):
+                        for hh in range(2):
+                            row = strip[2 * i + hh]
+                            if mode == "pass":
+                                terms = [ld(row, col)]
+                            else:
+                                terms = []
+                                for pair in _tap_pairs(k):
+                                    for tap in pair:
+                                        ky, kx = divmod(tap, k)
+                                        dy, dx = ((ky - p) * d, (kx - p) * d) if mode == "full" \
+                                            else (0, 0)
+                                        v = ld(row + dy, col + dx)
+                                        prod = torch.from_numpy(v * wt[tap]).to(bf).float()
+                                        terms.append(prod.numpy())
+                            sums = np.sum(terms, axis=(0, 2, 3, 4), dtype=np.float64)  # per g
+                            for gi in range(8):
+                                if row < h and cg * 8 + gi < w:
+                                    out[img, row, cg * 8 + gi] += sums[gi]
+    return out[..., None] / e
+
+
+@pytest.mark.parametrize("mode", ["pass", "arith", "full"])
+def test_stencil_kernel_index_maps_emulated_match_plain(mode):
+    """The kernel's tile swizzle, chain strips, windows and tap order,
+    emulated at a ragged shape (20 rows in strips of 4, 40 columns in
+    groups of 8, two channel slices), give the plain version's result to
+    float32 summation order; each tap sits in exactly one MMA slot."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.stencil_floor import (
+        stencil_floor_plain,
+    )
+
+    for k, n_mma in ((5, 13), (3, 5)):
+        pairs = _tap_pairs(k)
+        assert len(pairs) == n_mma and sorted(sum(pairs, [])) == list(range(k * k))
+    # 8 neighbouring columns of one chunk and pair fall in 8 distinct bank groups
+    for col0 in range(0, 16, 8):
+        banks = {_word_of(col0 + gi, 3, ti) % 32 for gi in range(8) for ti in range(4)}
+        assert len(banks) == 32
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((1, 20, 40, 32)).astype(np.float32)).to(torch.bfloat16)
+    w_exp = torch.from_numpy((rng.standard_normal((32, 128)) * 0.05).astype(np.float32))
+    w_dw = torch.from_numpy((rng.standard_normal((25, 128)) * 0.05).astype(np.float32))
+    got = _emulate_stencil_kernel(x, w_exp, w_dw, mode, 5, 2)
+    want = stencil_floor_plain(x, w_exp, w_dw, mode, 5, 2).double().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -14,10 +14,17 @@ hand-written kernel ``csrc/stencil_floor.cu``:
   pass      the expand product and the channel mean alone
 
 ``full - pass`` is the stencil's whole cost, ``arith - pass`` its arithmetic;
-their ratio says how much of the stencil is window movement (here: strided
-shared-memory reads) and how much is the term chain itself. Times are CUDA
-events over back-to-back launches. Every line carries the card's name and
-power limit. Exits non-zero without a card. Imports nothing of JAX.
+their ratio says how much of the stencil is window movement and how much is
+the term chain itself. In the kernel (one CTA per image, the image's y
+slice in shared memory, see the source's header) ``pass`` is x copied in
+once per 64-channel slice, the expand product on wgmma and y written to and
+read back from the shared tile; ``arith - pass`` is the 25-term chain: the
+packed bf16 products (``mul.rn.bf16x2``) and their sums on the tensor cores
+(``mma.sync`` against ones); ``full - arith`` is the window movement: the
+shifted window values loaded from the tile, with the zero fill at the
+image's edges. Times are CUDA events over back-to-back launches. Every
+line carries the card's name and power limit. Exits non-zero without a
+card. Imports nothing of JAX.
 """
 
 from __future__ import annotations
