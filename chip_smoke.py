@@ -27,6 +27,14 @@ also at 320x240 b128 and b1 from that predictor's features and at a ragged
 - the serving modes at 512x512 b128 (``seg_modes``): int8 weights against the
   bf16 predictor, slim (channel-pruned) widths against the masked dense model
   and against their own stock-op path;
+- the per-block kernel on every backbone block and the predictor's
+  ``fused_blocks``/``fused_chain`` options (``seg_fused_blocks``): blocks
+  0-14 alone at their 512x512 b128 inputs (and 1, 6, 13 at 320x240 b32)
+  against their plain versions, timed beside the stock module and their
+  bound; ``SegPredictor(fused_blocks=range(15))`` at 512x512 b128 beside the
+  default path and at 320x240 b32, with exact launch counts, against the
+  default path and the CPU path; ``fused_chain=False`` block by block
+  against the chain (row 3's own ``launches_by_path``);
 - ``SegPredictor.predict`` at the server's default 320x240 (``seg_320x240``);
 - the HTTP server (``server``): checkpoints written with ``save_params``,
   ``DemoServer`` started through ``from_checkpoint`` on 127.0.0.1, ``/healthz``,
@@ -100,7 +108,8 @@ also at 320x240 b128 and b1 from that predictor's features and at a ragged
 - the graft entry, the block profiler and the data-generation surfaces
   (``tools``): ``graft_entry_torch.entry()`` card vs CPU,
   ``tools/profile_blocks_torch.py`` at 512x512 b128 (kernels 4 and 1,
-  ``launches_by_path``'s ``profile_blocks``), ``generate_dataset_torch.py``
+  ``launches_by_path``'s ``profile_blocks``),
+  ``tools/profile_pose_step_torch.py`` at b24, ``generate_dataset_torch.py``
   at 320x240 and its resume, ``tta_batch`` card vs CPU, and the plot CLIs'
   computation (a checkpoint's prediction grid card vs CPU).
 
@@ -1291,6 +1300,293 @@ def phase_seg_modes(torch, weights, base, imgs, card):
         fail(f"slim vs masked dense on the kernel path {vs_masked} < 0.999")
     if vs_ref < 0.99:
         fail(f"slim kernel path vs its use_kernels=False {vs_ref} < 0.99")
+
+
+FUSED_320_BLOCKS = (1, 6, 13)  # blocks also held alone at 320x240 b32 (odd widths from 6 on)
+FUSED_320_B = 32
+
+
+def _block_want(pred) -> dict:
+    """Exact launches of one ``predict`` of a per-block kernel path: K1 for
+    each kernel block with an expand conv, K2 and K4 for each, K3 for each
+    with SE, and one mask decode."""
+    blocks = [pred.model.backbone.block(i) for i in pred.kernel_blocks]
+    want = {"expand_gemm": sum(b.expand is not None for b in blocks),
+            "depthwise": len(blocks), "se_gate": sum(b.se is not None for b in blocks),
+            "project_gemm": len(blocks), "fused_mask_decode": 1}
+    return {n: c for n, c in want.items() if c}
+
+
+def _one_predict_launches(torch, pred, imgs) -> tuple:
+    """(masks, launch counts) of one ``predict``, the counts zeroed just
+    before it and read just after."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+
+    _build.reset_launches()
+    masks = pred.predict(imgs)
+    torch.cuda.synchronize()
+    return masks, dict(_build.LAUNCHES)
+
+
+def block_steps(torch, fb, x, bw, stride: int, act: str, res: bool, dil: int,
+                iters: int = 10) -> dict:
+    """A block's K1-K4 timed one at a time (CUDA events) on the inputs the
+    block gives them, and the depthwise's band count."""
+    b, h, w, _ = x.shape
+    steps, y = {}, x
+    if bw.exp_w is not None:
+        y = torch.empty((b, h, w, bw.cexp), dtype=torch.bfloat16, device=x.device)
+        steps["expand_gemm"] = cuda_ms(lambda: fb._gemm(
+            x, bw.exp_w, bw.exp_b, None, 0, None, y, act, "expand_gemm"), iters)
+    dw, sums, nbands = fb._depthwise(y, bw, stride, act, dil)
+    steps["depthwise"] = cuda_ms(lambda: fb._depthwise(y, bw, stride, act, dil), iters)
+    npix = dw.shape[1] * dw.shape[2]
+    gate = None
+    if sums is not None:
+        gate = fb._se_gate(sums, nbands, npix, bw)
+        steps["se_gate"] = cuda_ms(lambda: fb._se_gate(sums, nbands, npix, bw), iters)
+    out = torch.empty((*dw.shape[:3], bw.cout), dtype=torch.bfloat16, device=x.device)
+    steps["project_gemm"] = cuda_ms(lambda: fb._gemm(
+        dw, bw.proj_w, bw.proj_b, gate, npix, x if res else None, out, None,
+        "project_gemm"), iters)
+    return {"steps_ms": steps, "depthwise_bands": nbands}
+
+
+def block_case_row(torch, blk, x, iters: int = 10) -> dict:
+    """One folded block on the card at ``x``'s shape: the per-block kernel
+    against its plain version (``TOL``), its launches, its ms beside the
+    stock module's (cuDNN) on the same input and beside its bound (in + out
+    + weight bytes over the HBM rate, or its operations: the 1x1 GEMMs on
+    the tensor cores, the depthwise and SE in fp32)."""
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import fused_block as fb
+
+    bw = fb.BlockWeights.from_module(blk)
+    args = (blk.kernel, blk.stride, blk.act, blk.residual, blk.dilation)
+    k, st, act, res, dil = args
+    _build.reset_launches()
+    got = fb.fused_inverted_residual(x, bw, *args)
+    counts = dict(_build.LAUNCHES)
+    want = fb.inverted_residual_plain(x, bw, st, act, res, dil, torch.bfloat16)
+    module = blk(x)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    row = {"shape": list(x.shape), "out": list(got.shape), "k": k, "stride": st,
+           "dilation": dil, "act": act, "expand": bw.exp_w is not None,
+           "se": bw.se1_w is not None, "residual": res, "max_abs_err": err,
+           "max_abs_ref": float(want.float().abs().max()),
+           "module_max_abs_diff": float((module.float() - want.float()).abs().max()),
+           "within_tol": err <= TOL, "launches": counts,
+           "launches_want": {n: 1 for n, on in zip(fb.BLOCK_KERNELS, (
+               bw.exp_w is not None, True, bw.se1_w is not None, True)) if on}}
+    del got, want, module
+    b, h, w, _ = x.shape
+    _, oh, ow, _ = row["out"]
+    m_in, m_out = b * h * w, b * oh * ow
+    wbytes = sum(t.numel() * t.element_size() for t in
+                 (bw.exp_w, bw.exp_b, bw.dw_w, bw.dw_b, bw.se1_w, bw.se1_b,
+                  bw.se2_w, bw.se2_b, bw.proj_w, bw.proj_b) if t is not None)
+    tflops = 2 * m_out * bw.cexp * bw.cout + (
+        2 * m_in * bw.cin * bw.cexp if bw.exp_w is not None else 0)
+    fflops = 2 * m_out * k * k * bw.cexp + (
+        4 * b * bw.cexp * bw.se1_w.shape[1] if bw.se1_w is not None else 0)
+    bnd, by = bound((m_in * bw.cin + m_out * bw.cout) * 2 + wbytes,
+                    tensor_flops=tflops, fp32_flops=fflops)
+    row["cuda_ms"] = cuda_ms(lambda: fb.fused_inverted_residual(x, bw, *args), iters)
+    row["module_ms"] = cuda_ms(lambda: blk(x), iters)
+    row.update({"bound_ms": bnd, "bound_by": by, "share": bnd / row["cuda_ms"],
+                "kernel_over_module": row["cuda_ms"] / row["module_ms"]})
+    row.update(block_steps(torch, fb, x, bw, st, act, res, dil, iters))
+    return row
+
+
+def phase_seg_fused_blocks(torch, weights, default, imgs, card) -> dict:
+    """The per-block kernel on every backbone block and the predictor's
+    ``fused_blocks``/``fused_chain`` options, on the card:
+
+    - each block 0-14 alone at its 512x512 b128 input (the stock backbone's
+      activations from ``imgs``), and blocks 1, 6, 13 at 320x240 b32:
+      ``block_case_row``;
+    - ``SegPredictor(fused_blocks=range(15))`` at 512x512 b128: ms/batch
+      beside the default path's (in alternating turns), peak memory, the
+      exact launches of one ``predict``, masks against the same option's
+      CPU path on 4 images (0.999), against the default path and the
+      float32 stock-op path on the card (0.99: bf16 rounded at other
+      points);
+    - the same at 320x240 b32, against the CPU path;
+    - ``fused_chain=False`` with the default blocks: 3 x 4 per-block
+      launches, no call of the tail chain, masks against the chain's.
+
+    Returns each predictor run's block-kernel launches (one ``predict``
+    each), by path."""
+    import numpy as np
+
+    from mtg_card_image_segmentation_tpu_torch.models.mobilenetv3 import (
+        MOBILENET_V3_LARGE_ROWS,
+    )
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import BLOCK_KERNELS
+    from mtg_card_image_segmentation_tpu_torch.serving import predictor as seg
+    from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+
+    t_start = time.perf_counter()
+    bad, by_path = [], {}
+    all_ids = tuple(range(len(MOBILENET_V3_LARGE_ROWS)))
+    tags = {"card": card["name"], "nvidia_smi": card["nvidia_smi"]}
+
+    def blocks_alone(pred, images, ids, size):
+        bb = pred.model.backbone
+        with torch.inference_mode():
+            x = bb.stem((images.float() - pred._center).to(pred.dtype))
+            for i in range(max(ids) + 1):
+                blk = bb.block(i)
+                if i in ids:
+                    row = block_case_row(torch, blk, x.contiguous())
+                    emit({"phase": "seg_fused_blocks", "part": "block", "block": i,
+                          "size": size, **row, **tags})
+                    if not row["within_tol"] or row["launches"] != row["launches_want"]:
+                        bad.append(f"block {i} at {row['shape']}: max|d| {row['max_abs_err']} "
+                                   f"(gate {TOL}), launches {row['launches']}")
+                x = blk(x)
+        del x
+        torch.cuda.empty_cache()
+
+    blocks_alone(default, imgs, all_ids, [SIZE, SIZE])
+
+    # fused_blocks=range(15) and fused_chain=False at 512x512 b128, timed in
+    # turns with the default (and blocks 1-14, block 0 left to its module)
+    allp = SegPredictor(*weights, SIZE, SIZE, fused_blocks=all_ids)
+    nochain = SegPredictor(*weights, SIZE, SIZE, fused_chain=False)
+    if allp.kernel_blocks != all_ids:
+        bad.append(f"kernel_blocks {allp.kernel_blocks}, want {all_ids}")
+    preds = {"default": default, "all_blocks": allp, "fused_chain_off": nochain,
+             "blocks_1_14": SegPredictor(*weights, SIZE, SIZE, fused_blocks=all_ids[1:])}
+    calls, rounds = 5, 2
+    ms = {name: [] for name in preds}
+    for r in range(rounds):
+        for name in (list(preds) if r % 2 == 0 else list(preds)[::-1]):
+            pred = preds[name]
+            pred.predict(imgs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                pred.predict(imgs)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / calls)
+    peak = {}
+    for name, pred in preds.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pred.predict(imgs)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated()
+    masks, counts = _one_predict_launches(torch, allp, imgs)
+    by_path["seg_fused_blocks_b128"] = sum(counts.get(n, 0) for n in BLOCK_KERNELS)
+    want = _block_want(allp)
+    base = default.predict(imgs)
+    agree = float((masks == base).float().mean())
+    cpu = SegPredictor(*weights, SIZE, SIZE, device="cpu", fused_blocks=all_ids)
+    t0 = time.perf_counter()
+    agree_cpu = allp.mask_agreement(cpu, imgs[:4])
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    # which of the two bf16 paths lies nearer the float32 stock-op path
+    fp32 = SegPredictor(*weights, SIZE, SIZE, use_kernels=False, dtype=torch.float32)
+    fp32_masks = fp32.predict(imgs)
+    agree_fp32 = float((masks == fp32_masks).float().mean())
+    default_fp32 = float((base == fp32_masks).float().mean())
+    del fp32, fp32_masks
+    emit({"phase": "seg_fused_blocks", "part": "predict", "variant": "all_blocks",
+          "batch": imgs.shape[0], "size": SIZE, "kernel_blocks": list(allp.kernel_blocks),
+          "calls": calls, "ms_per_batch_rounds": ms["all_blocks"],
+          "ms_per_batch": min(ms["all_blocks"]),
+          "default_ms_per_batch_rounds": ms["default"],
+          "default_ms_per_batch": min(ms["default"]),
+          "blocks_1_14_ms_per_batch_rounds": ms["blocks_1_14"],
+          "blocks_1_14_ms_per_batch": min(ms["blocks_1_14"]),
+          "blocks_1_14_peak_mem_bytes": peak["blocks_1_14"], "peak_mem_bytes": peak["all_blocks"],
+          "default_peak_mem_bytes": peak["default"], "launches_per_predict": counts,
+          "launches_want": want, "agreement_vs_cpu": agree_cpu, "cpu_images": 4,
+          "cpu_seconds": cpu_s, "agreement_vs_default": agree,
+          "agreement_vs_default_floor": 0.99, "agreement_vs_fp32_stock": agree_fp32,
+          "default_agreement_vs_fp32_stock": default_fp32, **tags})
+    if counts != want:
+        bad.append(f"fused_blocks=all launches per predict {counts}, want {want}")
+    if masks.dtype != torch.uint8 or tuple(masks.shape) != tuple(base.shape):
+        bad.append(f"fused_blocks=all masks {masks.dtype} {tuple(masks.shape)}")
+    # the kernels are held by the CPU path of the same option (their plain
+    # versions, 0.999); against the default path, which rounds bf16 at other
+    # points (after each stock conv and bias add, not once per block), and
+    # against the float32 stock-op path, by the floor of such pairs (0.99)
+    if not agree_cpu >= 0.999:
+        bad.append(f"fused_blocks=all agreement vs CPU {agree_cpu} < 0.999")
+    if not agree >= 0.99 or not agree_fp32 >= 0.99:
+        bad.append(f"fused_blocks=all agreement vs default {agree}, vs the float32 stock-op "
+                   f"path {agree_fp32} (floor 0.99)")
+    del masks
+    torch.cuda.empty_cache()
+
+    # fused_chain=False, default blocks: block by block, never the chain
+    chain_calls = []
+    chain = seg.fused_tail_chain
+
+    def counted_chain(*a, **kw):
+        chain_calls.append(1)
+        return chain(*a, **kw)
+
+    seg.fused_tail_chain = counted_chain
+    try:
+        masks, counts = _one_predict_launches(torch, nochain, imgs)
+        nochain_chain_calls = len(chain_calls)
+        default.predict(imgs)
+        default_chain_calls = len(chain_calls) - nochain_chain_calls
+    finally:
+        seg.fused_tail_chain = chain
+    by_path["seg_fused_chain_off"] = sum(counts.get(n, 0) for n in BLOCK_KERNELS)
+    want = _block_want(nochain)
+    agree = float((masks == base).float().mean())
+    emit({"phase": "seg_fused_blocks", "part": "predict", "variant": "fused_chain_off",
+          "batch": imgs.shape[0], "size": SIZE, "kernel_blocks": list(nochain.kernel_blocks),
+          "ms_per_batch_rounds": ms["fused_chain_off"], "ms_per_batch": min(ms["fused_chain_off"]),
+          "peak_mem_bytes": peak["fused_chain_off"], "launches_per_predict": counts,
+          "launches_want": want, "chain_calls": nochain_chain_calls,
+          "default_chain_calls": default_chain_calls,
+          "agreement_vs_chain": agree, **tags})
+    if counts != want or nochain_chain_calls != 0 or default_chain_calls != 1:
+        bad.append(f"fused_chain=False launches {counts} (want {want}), chain calls "
+                   f"{nochain_chain_calls} (default path: {default_chain_calls})")
+    if not agree >= 0.999:
+        bad.append(f"fused_chain=False agreement vs the chain {agree} < 0.999")
+    del allp, nochain, preds, masks, base
+    torch.cuda.empty_cache()
+
+    # 320x240 b32: blocks 1, 6, 13 alone, and the predictor against the CPU
+    h, w = SERVER_HW
+    p320 = SegPredictor(*weights, h, w, fused_blocks=all_ids)
+    imgs320 = torch.from_numpy(np.random.default_rng(SEED + 321).integers(
+        0, 256, (FUSED_320_B, h, w, 3), np.uint8)).cuda()
+    blocks_alone(p320, imgs320, FUSED_320_BLOCKS, [h, w])
+    ms320, peak320, _ = _time_predict(torch, p320, imgs320)
+    masks, counts = _one_predict_launches(torch, p320, imgs320)
+    by_path["seg_fused_blocks_320x240"] = sum(counts.get(n, 0) for n in BLOCK_KERNELS)
+    want = _block_want(p320)
+    cpu = SegPredictor(*weights, h, w, device="cpu", fused_blocks=all_ids)
+    agree_cpu = p320.mask_agreement(cpu, imgs320[:4])
+    emit({"phase": "seg_fused_blocks", "part": "predict", "variant": "all_blocks",
+          "batch": FUSED_320_B, "size": [h, w], "ms_per_batch": ms320,
+          "peak_mem_bytes": peak320, "launches_per_predict": counts, "launches_want": want,
+          "foreground_fraction": float(masks.float().mean()),
+          "agreement_vs_cpu": agree_cpu, "cpu_images": 4, **tags})
+    if counts != want or tuple(masks.shape) != (FUSED_320_B, h, w):
+        bad.append(f"fused_blocks=all at 320x240: launches {counts} (want {want}), "
+                   f"masks {tuple(masks.shape)}")
+    if not agree_cpu >= 0.999:
+        bad.append(f"fused_blocks=all at 320x240 agreement vs CPU {agree_cpu} < 0.999")
+    emit({"phase": "seg_fused_blocks", "part": "done", "launches_by_path": by_path,
+          "seconds": time.perf_counter() - t_start})
+    if bad:
+        fail(f"seg_fused_blocks: {bad}")
+    return by_path
 
 
 def phase_seg_320x240(torch, weights, card):
@@ -4349,6 +4645,7 @@ def phase_tools(torch, card, root: Path, seg_ck: Path) -> dict:
     import generate_examples_torch
     import graft_entry_torch
     import profile_blocks_torch
+    import profile_pose_step_torch
     import visualize_augmentations_torch
 
     from mtg_card_image_segmentation_tpu_torch.data.aug_policies import tta_batch
@@ -4385,6 +4682,14 @@ def phase_tools(torch, card, root: Path, seg_ck: Path) -> dict:
     for k in ("fused_normalize", "fused_mask_decode"):
         if launches.get(k, 0) <= 0:
             bad.append(f"profile_blocks launched no {k}: {launches}")
+    torch.cuda.empty_cache()
+    # the pose-step profiler at the pose config's b24, a few steps
+    pose = profile_pose_step_torch.run(batches=(POSE_B,), steps=3)
+    out["profile_pose_step"] = {k: pose[k] for k in ("size", "heatmap", "steps", "rows")}
+    if [r["batch"] for r in pose["rows"]] != [POSE_B] or not all(
+            r["loss_finite"] and r["datagen_ms"] > 0 and r["train_step_ms"] > 0
+            for r in pose["rows"]):
+        bad.append(f"profile_pose_step: {pose['rows']}")
     torch.cuda.empty_cache()
     # dataset generation, then the resume
     ds, yolo = root / "gen_dataset", root / "gen_yolo"
@@ -4563,6 +4868,7 @@ def main() -> int:
     phase_profile(torch, pred, imgs, card)
     option_launches = phase_seg_options(torch, weights, pred, imgs, card)
     phase_seg_modes(torch, weights, pred, imgs, card)
+    block_launches = phase_seg_fused_blocks(torch, weights, pred, imgs, card)
     del pred, imgs
     torch.cuda.empty_cache()
     phase_seg_320x240(torch, weights, card)
@@ -4592,8 +4898,10 @@ def main() -> int:
     # per kernel: source, the TPU kernel it replaces, and its launches on
     # each main path that runs it, every path zeroed before and read after
     # its own run: the predictors' b128 runs and the server's 16 requests for
-    # kernels 1-4, the trained CLI checkpoint's b32 predict and the pruned,
-    # slimmed one's for 1-3, the trained pose checkpoint's b24 predict for 4, the option
+    # kernels 1, 2 and 4, the trained CLI checkpoint's b32 predict and the pruned,
+    # slimmed one's for 1-2, the trained pose checkpoint's b24 predict for 4,
+    # the per-block predictors' (fused_blocks=all at 512x512 b128 and
+    # 320x240 b32, fused_chain=False) one predict each for 3, the option
     # predictors for 5-6, the stencil tool's run for 8 (upsample2x_add
     # has no caller in the package: its launches are those of the kernel
     # phase's timed run). ``launches`` is their sum.
@@ -4612,7 +4920,7 @@ def main() -> int:
                                "distributed_served": dist_launches["fused_mask_decode"],
                                "profile_blocks": tools_launches["fused_mask_decode"]}),
         "fused_inverted_residual": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:515",
-                                    blocks_by_path),
+                                    block_launches),
         "fused_tail_chain": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:393",
                              blocks_by_path),
         "fused_normalize": (f"{src}/preprocess.cu", f"{ref}/preprocess.py:37",

@@ -165,6 +165,14 @@ class BlockWeights:
         return cls.from_flax(tree, block.kernel, block.depthwise.conv.weight.device)
 
 
+def kernel_takes(block) -> bool:
+    """Whether the block kernels take the port's folded ``InvertedResidual``:
+    a block without an expand conv needs a width that is a multiple of 8
+    (:meth:`BlockWeights.from_flax` raises for it; an expand conv lets the
+    width be widened with zero channels)."""
+    return block.expand is not None or block.depthwise.conv.weight.shape[0] % 8 == 0
+
+
 def _weights(params, kernel_size: int, device) -> BlockWeights:
     if isinstance(params, BlockWeights):
         return params
@@ -301,6 +309,8 @@ def _gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
           name: str, out_copy: Optional[torch.Tensor] = None) -> None:
     n, k = w.shape
     m = a.numel() // k
+    if m >= 2 ** 31 - GEMM_BM:  # the kernel's row coordinates are 32-bit
+        raise ValueError(f"GEMM of {m} rows: at most 2^31 - {GEMM_BM}")
     if a.dtype != BF16 or w.dtype != BF16:
         raise ValueError(f"GEMM wants bf16 A and weights, got {a.dtype} and {w.dtype}")
     if a.data_ptr() % 16 or w.data_ptr() % 16:

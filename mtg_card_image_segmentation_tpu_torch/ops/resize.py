@@ -126,3 +126,11 @@ def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     idx_w = torch.from_numpy(nearest_indices(in_w, out_w)).to(x.device)
     out = x.index_select(1, idx_h).index_select(2, idx_w)
     return out[0] if squeeze else out
+
+
+def upsample_add(high: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    """Bilinear-upsample NHWC ``high`` to ``low``'s spatial size and add:
+    the LR-ASPP decoder merge (reference train/model.py:140-142). The
+    hand-written variant is ``ops/kernels/decoder.py::upsample2x_add``."""
+    _, h, w, _ = low.shape
+    return bilinear_resize(high, h, w) + low

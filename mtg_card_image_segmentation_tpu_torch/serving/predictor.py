@@ -19,6 +19,14 @@ centering, conv, bias and hardswish in one pass), and ``fused_head=True``
 runs the head's tail and the decode as one kernel (``fused_head_decode``,
 ``_head_decode_mask``).
 
+``fused_blocks`` (default ``FUSED_BLOCKS``, blocks 12-14) and
+``fused_chain`` (default True) choose the backbone blocks that run the
+hand-written block kernels, as the reference's ``fused_blocks`` and its
+``MTG_FUSED_CHAIN`` switch do: exactly blocks 12-14 with ``fused_chain``
+run as the tail chain; otherwise every listed block runs the per-block
+kernel (``fused_inverted_residual``) at its own kernel size, stride,
+activation, SE and dilation, and the other blocks run as their modules.
+
 ``use_kernels=False`` is the reference-shaped path: unfolded normalize,
 full head, bilinear resize and argmax, all in stock ops.
 """
@@ -26,7 +34,7 @@ full head, bilinear resize and argmax, all in stock ops.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +62,9 @@ from mtg_card_image_segmentation_tpu_torch.ops.kernels.decoder import (
 )
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.fused_block import (
     BlockWeights,
+    fused_inverted_residual,
     fused_tail_chain,
+    kernel_takes,
 )
 from mtg_card_image_segmentation_tpu_torch.ops.kernels.stem import apply_stem, prepare_stem
 from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_matrix, bilinear_resize
@@ -97,13 +107,24 @@ def tail_weights(backbone: MobileNetV3Backbone) -> List[BlockWeights]:
     return [BlockWeights.from_module(backbone.block(i)) for i in FUSED_BLOCKS]
 
 
+def kernel_block_ids(backbone: MobileNetV3Backbone, fused_blocks: Sequence[int]) -> Tuple[int, ...]:
+    """The blocks of ``fused_blocks`` that the per-block kernel takes, decided
+    from the weights' shapes (``kernel_takes``); the others run as their
+    modules, as the reference's blocks without a tiling do."""
+    return tuple(i for i in sorted(set(fused_blocks)) if kernel_takes(backbone.block(i)))
+
+
 def _fused_backbone(backbone: MobileNetV3Backbone, x: torch.Tensor,
                     tail: Optional[Sequence[BlockWeights]] = None,
-                    stem_done: bool = False) -> Dict[str, torch.Tensor]:
+                    stem_done: bool = False,
+                    blocks: Optional[Mapping[int, BlockWeights]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Backbone forward. With ``tail`` (the kernel weights of blocks 12-14)
-    those blocks run as the hand-written tail chain; ``tail=None`` runs
-    every block as its module. With ``stem_done`` the input is already the
-    stem's output (the stem-kernel path). Returns the {"low", "high"} taps."""
+    those blocks run as the hand-written tail chain; with ``blocks`` ({block
+    id: kernel weights}) each of those blocks runs the per-block kernel;
+    every other block runs as its module. With ``stem_done`` the input is
+    already the stem's output (the stem-kernel path). Returns the {"low",
+    "high"} taps."""
     if not stem_done:
         x = backbone.stem(x)
     taps = {}
@@ -113,6 +134,10 @@ def _fused_backbone(backbone: MobileNetV3Backbone, x: torch.Tensor,
             if i == FUSED_BLOCKS[0]:
                 x = fused_tail_chain(x.contiguous(), tail, kernel_size=k, act=act,
                                      dilation=blk.dilation)
+        elif blocks is not None and i in blocks:
+            # stride 1 at dilation 2 in the tail (the module's own rule)
+            x = fused_inverted_residual(x.contiguous(), blocks[i], k, blk.stride, act,
+                                        blk.residual, blk.dilation)
         else:
             x = blk(x)
         if i == LOW_TAP_ROW:
@@ -235,6 +260,17 @@ class SegPredictor:
     kernels; ``fused_stem`` needs ``height`` and ``width`` to be multiples
     of 8. Both need ``use_kernels=True``.
 
+    ``fused_blocks`` (block ids 0-14) and ``fused_chain``: with the default
+    blocks 12-14 and ``fused_chain=True`` those blocks run as the tail
+    chain; otherwise each listed block runs the per-block kernel and every
+    other block its module (``fused_chain=False`` is the reference's
+    ``MTG_FUSED_CHAIN=0``). A listed block that the kernel cannot take (no
+    expand conv and a width that is not a multiple of 8) runs as its
+    module, decided here from the weights. ``kernel_blocks`` holds the
+    blocks that run a kernel. Widths come from the weights, so slim trees
+    and int8 weights take the same path. Other values than the defaults
+    need ``use_kernels=True``.
+
     ``mesh`` (``parallel/mesh.py``): batch-split serving over the mesh's
     local devices, one replica of the folded weights per device, each
     running the whole program (kernels included) on its slice
@@ -246,11 +282,18 @@ class SegPredictor:
                  use_kernels: bool = True, dtype: torch.dtype = torch.bfloat16,
                  device=None, fused_head: bool = False,
                  fused_stem: bool = False, quantize: Optional[str] = None,
-                 mesh=None) -> None:
+                 mesh=None, fused_blocks: Sequence[int] = FUSED_BLOCKS,
+                 fused_chain: bool = True) -> None:
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if (fused_head or fused_stem) and not use_kernels:
-            raise ValueError("fused_head and fused_stem are options of use_kernels=True")
+        fused_blocks = tuple(int(i) for i in fused_blocks)
+        if any(not 0 <= i < len(MOBILENET_V3_LARGE_ROWS) for i in fused_blocks):
+            raise ValueError(f"fused_blocks are block ids 0-{len(MOBILENET_V3_LARGE_ROWS) - 1}, "
+                             f"got {fused_blocks}")
+        if (fused_head or fused_stem or fused_blocks != FUSED_BLOCKS
+                or not fused_chain) and not use_kernels:
+            raise ValueError("fused_head, fused_stem, fused_blocks and fused_chain are "
+                             "options of use_kernels=True")
         if fused_stem and (height % 8 or width % 8):
             raise ValueError(
                 f"fused_stem needs height and width to be multiples of 8, got {height}x{width}")
@@ -258,12 +301,14 @@ class SegPredictor:
         self.device = resolve_device(mesh.devices[0] if mesh is not None else device)
         self._replicas = [self] + [
             SegPredictor(params, batch_stats, height, width, use_kernels, dtype, d, fused_head,
-                         fused_stem, quantize)
+                         fused_stem, quantize, fused_blocks=fused_blocks,
+                         fused_chain=fused_chain)
             for d in (mesh.devices[1:] if mesh is not None else ())]
         self.height, self.width = height, width
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.fused_head, self.fused_stem = fused_head, fused_stem
+        self.fused_blocks, self.fused_chain = fused_blocks, fused_chain
         self.quantize = quantize
         folded = fold_batch_norm(params, batch_stats)
         if use_kernels:
@@ -277,9 +322,17 @@ class SegPredictor:
             folded = dequantize_params(self._qparams, dtype, xp=torch_xp)
         self.model = from_flax(folded, None, dtype=dtype).to(self.device, dtype)
         self.model = self.model.to(memory_format=torch.channels_last)
+        self._tail, self._blocks, self.kernel_blocks = None, None, ()
         if use_kernels:
+            backbone = self.model.backbone
             with torch.no_grad():
-                self._tail = tail_weights(self.model.backbone)
+                if fused_blocks == FUSED_BLOCKS and fused_chain:
+                    self._tail = tail_weights(backbone)
+                    self.kernel_blocks = FUSED_BLOCKS
+                else:
+                    self.kernel_blocks = kernel_block_ids(backbone, fused_blocks)
+                    self._blocks = {i: BlockWeights.from_module(backbone.block(i))
+                                    for i in self.kernel_blocks}
                 self._head_vectors = _head_gate_vectors(self.model.head)
         self._center = torch.tensor(255.0 * _IMAGENET_MEAN, dtype=torch.float32,
                                     device=self.device)
@@ -317,7 +370,7 @@ class SegPredictor:
             else:
                 x = (images.float() - self._center).to(self.dtype)
             taps = _fused_backbone(self.model.backbone, x, self._tail,
-                                   stem_done=self.fused_stem)
+                                   stem_done=self.fused_stem, blocks=self._blocks)
             if self.fused_head:
                 return _head_decode_mask(self.model.head, taps["low"], taps["high"],
                                          self.height, self.width, self._head_vectors)

@@ -204,7 +204,7 @@ CLIS = ("train_seg_torch", "evaluate_seg_torch", "prune_seg_torch", "export_seg_
         "evaluate_pose_torch", "export_pose_torch", "generate_dataset_torch",
         "visualize_augmentations_torch", "generate_examples_torch", "graft_entry_torch")
 TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch", "distributed_step_torch",
-         "profile_blocks_torch")
+         "profile_blocks_torch", "profile_pose_step_torch")
 
 
 def test_port_sources_import_no_jax():

@@ -39,6 +39,7 @@ import generate_dataset_torch  # noqa: E402
 import generate_examples_torch  # noqa: E402
 import graft_entry_torch  # noqa: E402
 import profile_blocks_torch  # noqa: E402
+import profile_pose_step_torch  # noqa: E402
 import visualize_augmentations_torch  # noqa: E402
 
 cv2 = pytest.importorskip("cv2")
@@ -163,6 +164,20 @@ def test_profile_blocks_times_every_cut_on_the_host():
     assert rec["out_shape"] == [2, 64, 64] and rec["method"] == "host_clock_per_stage"
     with pytest.raises(ValueError, match="unknown cuts"):
         profile_blocks_torch.run(size=64, batch=1, iters=1, cuts="b99", device="cpu")
+
+
+def test_profile_pose_step_times_generation_and_the_step_on_the_host():
+    """tools/profile_pose_step_torch.py at a tiny size on the CPU, through
+    its function's arguments: one row per batch with positive times, the
+    combined rate batch / (generate + step) and a finite loss."""
+    rec = profile_pose_step_torch.run(batches=(1, 2), steps=1, size=(64, 96),
+                                      heatmap=(16, 24), device="cpu")
+    assert rec["size"] == [64, 96] and rec["heatmap"] == [16, 24]
+    assert [r["batch"] for r in rec["rows"]] == [1, 2]
+    for r in rec["rows"]:
+        assert r["datagen_ms"] > 0 and r["train_step_ms"] > 0 and r["loss_finite"]
+        assert r["img_per_s_combined"] == pytest.approx(
+            r["batch"] * 1e3 / (r["datagen_ms"] + r["train_step_ms"]))
 
 
 # --------------------------------------------------------------------------
