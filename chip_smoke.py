@@ -111,7 +111,18 @@ also at 320x240 b128 and b1 from that predictor's features and at a ragged
   ``launches_by_path``'s ``profile_blocks``),
   ``tools/profile_pose_step_torch.py`` at b24, ``generate_dataset_torch.py``
   at 320x240 and its resume, ``tta_batch`` card vs CPU, and the plot CLIs'
-  computation (a checkpoint's prediction grid card vs CPU).
+  computation (a checkpoint's prediction grid card vs CPU); then
+  ``tools/half_conv_layout_torch.py``, every half-precision conv the port
+  runs in NCHW and channels_last against float64 (a layout the port runs
+  that is wrong fails the phase); ``tools/make_slim_fixture_torch.py`` as a
+  CLI and its checkpoint served at 512x512 b128 through kernels 2 and 1
+  (``slim_fixture_served``, exact launches, the kernels against their plain
+  versions on the inputs of that predict, masks against the CPU path) and
+  profiled through kernels 4 and 1 (``slim_fixture_profile``); and
+  ``tools/make_decode_fixtures_torch.py`` (both families) and
+  ``tools/analyze_dead_channel_torch.py``'s analysis on the pose and YOLO
+  checkpoints of the earlier phases, the fixtures' indices against the CPU
+  selection on the same card outputs.
 
 It also profiles a few b128 ``predict`` calls of the three
 predictors: device time by kernel class and the card's idle share.
@@ -1517,7 +1528,12 @@ def phase_seg_fused_blocks(torch, weights, default, imgs, card) -> dict:
     # the kernels are held by the CPU path of the same option (their plain
     # versions, 0.999); against the default path, which rounds bf16 at other
     # points (after each stock conv and bias add, not once per block), and
-    # against the float32 stock-op path, by the floor of such pairs (0.99)
+    # against the float32 stock-op path, by the floor of such pairs (0.99).
+    # That floor rests on the reference's own gap: in
+    # tests/test_torch_seg_fused_blocks.py (bf16, Pallas in interpret mode)
+    # the JAX package's range(15)-vs-default pair reads 0.99874 at 512x512 b2
+    # (0.99933 at 128x128), the port's 0.99864 (0.99902), and the port's
+    # range(15) masks agree with the JAX package's at 0.99960 at 128x128
     if not agree_cpu >= 0.999:
         bad.append(f"fused_blocks=all agreement vs CPU {agree_cpu} < 0.999")
     if not agree >= 0.99 or not agree_fp32 >= 0.99:
@@ -4628,6 +4644,227 @@ def _run_cli(args, timeout: int = 300) -> dict:
     return json.loads([ln for ln in p.stdout.splitlines() if ln.startswith("{")][-1])
 
 
+def tools_conv_layout(torch) -> tuple:
+    """``tools/half_conv_layout_torch.py`` over the port's half-precision
+    convs: (fields, faults). A combination the port executes that is wrong
+    is a fault; the others are recorded (the first 8, and their count)."""
+    import half_conv_layout_torch
+
+    rec = half_conv_layout_torch.run("cuda")
+
+    def brief(row):
+        return {"call": {k: row["call"][k] for k in ("x", "w", "stride", "dilation", "groups",
+                                                     "transposed", "dtype")},
+                "layout": row["layout"], "rel_err": row["rel_err"], "nan": row["nan"],
+                "backends": row["backends"], "paths": row["paths"]}
+
+    fields = {k: rec[k] for k in ("paths", "distinct_calls", "by_dtype_layout",
+                                  "capture_seconds", "seconds")}
+    fields["wrong_executed"] = [brief(r) for r in rec["wrong_executed"]]
+    fields["wrong_not_executed"] = [brief(r) for r in rec["wrong_not_executed"][:8]]
+    fields["wrong_not_executed_count"] = len(rec["wrong_not_executed"])
+    bad = [f"half-precision convs wrong in the layout the port runs: "
+           f"{fields['wrong_executed'][:3]}"] if rec["wrong_executed"] else []
+    return fields, bad
+
+
+SLIM_FIXTURE_ROUNDS = 3     # timed rounds of 5 predicts each
+SLIM_FIXTURE_CPU_IMAGES = 4
+
+
+def tools_slim_fixture(torch, root: Path) -> tuple:
+    """``tools/make_slim_fixture_torch.py`` run as a CLI into ``root``, its
+    checkpoint loaded through ``slim_seg_state`` and served at 512x512 b128
+    (as ``bench.py --slim`` serves the JAX fixture): ms per batch over
+    rounds, peak memory, one predict's exact launches of kernels 2 and 1;
+    kernels 2, 1 and 4 against their plain versions on the inputs that
+    predict gave them (the tail chain at the fixture's narrowed widths);
+    masks against the CPU path on 4 images (>= 0.999); and the fixture
+    through ``tools/profile_blocks_torch.py --slim`` (kernels 4 and 1, 3
+    passes). Returns (fields, {path: launches}, faults)."""
+    import numpy as np
+    import profile_blocks_torch
+
+    from mtg_card_image_segmentation_tpu_torch.compression.slim import (
+        param_count,
+        slim_seg_state,
+    )
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import decoder as dec
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import fused_block as fb
+    from mtg_card_image_segmentation_tpu_torch.ops.kernels import preprocess as pre
+    from mtg_card_image_segmentation_tpu_torch.serving import predictor as seg
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
+
+    bad = []
+    out_dir = root / "slim_fixture"
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "tools/make_slim_fixture_torch.py", "--output-dir",
+                        str(out_dir)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if p.returncode:
+        fail(f"make_slim_fixture_torch.py: rc {p.returncode}: {p.stdout[-2000:]} "
+             f"{p.stderr[-2000:]}")
+    params, stats, meta = load_params(str(out_dir), "slim_model")
+    sp, ss, overrides = slim_seg_state(params, stats)
+    pred = seg.SegPredictor(sp, ss, SIZE, SIZE)
+    u8 = np.random.default_rng(SEED + 900).integers(0, 256, (BATCHES[-1], SIZE, SIZE, 3),
+                                                    dtype=np.uint8)
+    imgs = torch.from_numpy(u8).cuda()
+    rounds = [_time_predict(torch, pred, imgs) for _ in range(SLIM_FIXTURE_ROUNDS)]
+    counts = rounds[-1][2]
+    _check_seg_launches("slim fixture", counts)
+
+    # the kernels on the inputs the fixture's predict hands them
+    seen = {}
+    chain, decode = seg.fused_tail_chain, seg.fused_mask_decode
+
+    def keep_chain(x, tail, **kw):
+        seen["chain"] = (x, tail, kw)
+        return chain(x, tail, **kw)
+
+    def keep_decode(score, h, w):
+        seen["decode"] = score
+        return decode(score, h, w)
+
+    seg.fused_tail_chain, seg.fused_mask_decode = keep_chain, keep_decode
+    try:
+        masks = pred.predict(imgs)
+    finally:
+        seg.fused_tail_chain, seg.fused_mask_decode = chain, decode
+    x, tail, kw = seen["chain"]
+    chain_err = float((fb.fused_tail_chain(x, tail, **kw).float()
+                       - fb.tail_chain_plain(x, tail, kw["act"], kw["dilation"]).float())
+                      .abs().max())
+    score = seen["decode"]
+    decode_mismatch = int((dec.fused_mask_decode(score, SIZE, SIZE)
+                           != dec.fused_mask_decode_plain(score, SIZE, SIZE)).sum())
+    norm_equal = bool(torch.equal(pre.fused_normalize(imgs, torch.bfloat16),
+                                  pre.fused_normalize_plain(imgs, torch.bfloat16)))
+    kernels = {"fused_tail_chain": {"shape": list(x.shape), "widths": [bw.cexp for bw in tail],
+                                    "max_abs_err": chain_err, "within_tol": chain_err <= TOL},
+               "fused_mask_decode": {"shape": list(score.shape), "mismatches": decode_mismatch},
+               "fused_normalize": {"shape": list(imgs.shape), "bit_equal": norm_equal}}
+    if not chain_err <= TOL or decode_mismatch or not norm_equal:
+        bad.append(f"slim fixture kernels against their plain versions: {kernels}")
+
+    n = SLIM_FIXTURE_CPU_IMAGES
+    cpu = seg.SegPredictor(sp, ss, SIZE, SIZE, device="cpu")
+    agree = float((masks[:n].cpu() == cpu.predict(u8[:n])).float().mean())
+    del cpu, pred
+    if masks.dtype != torch.uint8 or tuple(masks.shape) != (BATCHES[-1], SIZE, SIZE) \
+            or not agree >= 0.999:
+        bad.append(f"slim fixture masks {masks.dtype} {tuple(masks.shape)}, agreement with "
+                   f"the CPU path {agree} (gate 0.999)")
+    torch.cuda.empty_cache()
+
+    prof = profile_blocks_torch.run(size=SIZE, batch=BATCHES[-1], iters=3, warmup=1,
+                                    checkpoint=str(out_dir / "slim_model"), slim=True)
+    if prof["launches"] != {"fused_normalize": 3, "fused_mask_decode": 3}:
+        bad.append(f"slim fixture profile launches {prof['launches']}, want 3 of "
+                   f"fused_normalize and fused_mask_decode")
+    torch.cuda.empty_cache()
+    fields = {"cli_seconds": cli_s, "cli_stdout": p.stdout.strip().splitlines(),
+              "config": meta.get("config"), "narrowed_blocks": sum(o is not None
+                                                                   for o in overrides),
+              "tail_widths": list(overrides[12:]), "params": param_count(sp),
+              "dense_params": param_count(params), "batch": BATCHES[-1], "size": SIZE,
+              "calls_per_round": 5, "ms_per_batch_rounds": [r[0] for r in rounds],
+              "ms_per_batch": min(r[0] for r in rounds),
+              "peak_mem_bytes": max(r[1] for r in rounds), "launches_per_predict": counts,
+              "kernels": kernels, "agreement_vs_cpu": agree, "cpu_images": n,
+              "profile": {k: prof[k] for k in ("stages", "total_ms", "img_per_s", "launches")}}
+    launches = {"served": counts, "profile": prof["launches"]}
+    return fields, launches, bad
+
+
+DECODE_KEYS = {"hrnet": {"heatmaps", "gt_corners", "indices", "dead_channel_conf",
+                         "image_hw", "platform", "epoch"},
+               "yolo": {"boxes", "scores", "kpts", "gt_corners", "indices",
+                        "ungated_err_px", "image_hw", "platform", "epoch"}}
+
+
+def tools_decode_fixtures(torch, root: Path) -> tuple:
+    """``tools/make_decode_fixtures_torch.py --family hrnet`` and ``--family
+    yolo`` (in-process, through ``main``) on the checkpoints that
+    ``pose_pipeline`` and ``yolo_pipeline`` wrote, over the full eval stream
+    (16 x 24 images): the npz keys, shapes and platform, and the indices
+    against those the selection functions choose on the CPU from the same
+    card outputs. Returns (fields, the HRNet channel maxima (N, K) on the
+    host, faults)."""
+    import numpy as np
+    import make_decode_fixtures_torch as mdf
+
+    fields, bad, chan_max = {}, [], None
+    name = torch.cuda.get_device_name(0)
+    for family, ck in (("hrnet", root / "ckpt_pose"), ("yolo", root / "ckpt_yolo")):
+        t0 = time.perf_counter()
+        rec = mdf.main(["--family", family, "--checkpoint", str(ck / "final_model"),
+                        "--out", str(root / "decode_fixtures")])
+        seconds = time.perf_counter() - t0
+        z, o = np.load(rec["path"]), rec["outputs"]
+        if family == "hrnet":
+            chan_max = o["hm"].amax(dim=(1, 2)).cpu().numpy()
+            cpu = mdf.hrnet_fixture(o["hm"].cpu(), o["gt"].cpu(), *POSE_HW)
+            shapes = {"heatmaps": (4, *POSE_HEATMAP_HW, 4), "gt_corners": (4, 4, 2)}
+        else:
+            cpu = mdf.yolo_fixture(o["boxes"].cpu(), o["scores"].cpu(), o["kpts"].cpu(),
+                                   o["gt"].cpu())
+            a = o["boxes"].shape[1]
+            shapes = {"boxes": (4, a, 4), "scores": (4, a, 1), "kpts": (4, a, 4, 3),
+                      "gt_corners": (4, 4, 2)}
+        cpu_idx = [int(i) for i in cpu["arrays"]["indices"]]
+        n_images = next(iter(o.values())).shape[0]
+        fields[family] = {"seconds": seconds, "images": n_images, "indices": rec["indices"],
+                          "cpu_indices": cpu_idx, "platform": str(z["platform"]),
+                          "epoch": int(z["epoch"]),
+                          "shapes": {k: list(z[k].shape) for k in z.files},
+                          "finite": all(bool(np.isfinite(z[k]).all()) for k in z.files
+                                        if z[k].dtype.kind == "f")}
+        if set(z.files) != DECODE_KEYS[family] or any(
+                z[k].shape != s for k, s in shapes.items()) or n_images != 16 * 24 \
+                or str(z["platform"]) != name or not fields[family]["finite"]:
+            bad.append(f"decode fixture {family}: {fields[family]}")
+        if cpu_idx != rec["indices"]:
+            bad.append(f"decode fixture {family}: card indices {rec['indices']}, the CPU "
+                       f"selection on the same outputs {cpu_idx}")
+        del rec, o
+        torch.cuda.empty_cache()
+    return fields, chan_max, bad
+
+
+def tools_dead_channel(torch, root: Path, chan_max_decode) -> tuple:
+    """``tools/analyze_dead_channel_torch.py``'s analysis (``analyze``: the
+    CLI without its panels, which need matplotlib) on the ``pose_pipeline``
+    checkpoint over the full eval stream at ``--dead-conf 0.2``: the
+    ``analysis.json`` keys, the report equal to the host's
+    ``dead_channel_report`` of the returned maxima, and the channel maxima
+    beside the decode-fixture run's. Returns (fields, faults)."""
+    import numpy as np
+    import analyze_dead_channel_torch as adc
+
+    out = root / "dead_channel"
+    t0 = time.perf_counter()
+    report, chan_max, gt, dead_imgs = adc.analyze(str(root / "ckpt_pose" / "final_model"),
+                                                  str(out))
+    seconds = time.perf_counter() - t0
+    written = json.loads((out / "analysis.json").read_text())
+    host = adc.dead_channel_report(chan_max, gt, *POSE_HW, 0.2)
+    dead = [e["index"] for e in report["dead_channel_images"]]
+    fields = {"seconds": seconds, "num_images": report["num_images"], "dead_images": len(dead),
+              "dead_indices_first": dead[:16],
+              "weakest_channel_percentiles": report["weakest_channel_percentiles"],
+              "chan_max_vs_decode_run_max_abs": float(np.abs(chan_max - chan_max_decode).max()),
+              "dead_indices_equal_decode_run": dead == [
+                  int(i) for i in np.where(chan_max_decode.min(axis=1) < 0.2)[0]]}
+    bad = []
+    if written != report or host != report or report["num_images"] != 16 * 24 \
+            or set(dead_imgs) != set(dead) or set(report) != {
+                "num_images", "dead_conf_threshold", "dead_channel_images", "population",
+                "weakest_channel_percentiles"}:
+        bad.append(f"dead-channel analysis: {fields}")
+    return fields, bad
+
+
 def phase_tools(torch, card, root: Path, seg_ck: Path) -> dict:
     """The graft entry, the block profiler and the data-generation
     surfaces on the card: ``graft_entry_torch.entry()`` (its logits against
@@ -4638,7 +4875,12 @@ def phase_tools(torch, card, root: Path, seg_ck: Path) -> dict:
     and the same command again, which must write nothing; ``tta_batch`` card
     vs CPU; the plot CLIs' computation (augmented samples, dataset
     statistics, the prediction grid of the ``train_cli`` checkpoint, card
-    vs CPU). Returns the profiler's kernel launches."""
+    vs CPU); the half-precision conv layout map (``tools_conv_layout``); the
+    slim fixture made and served (``tools_slim_fixture``); the decode
+    fixtures and the dead-channel analysis on the ``pose_pipeline`` and
+    ``yolo_pipeline`` checkpoints (``tools_decode_fixtures``,
+    ``tools_dead_channel``). Returns the kernel launches of the profiler's
+    run, the slim fixture's predict and its profile, by path."""
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "tools"))
@@ -4735,11 +4977,23 @@ def phase_tools(torch, card, root: Path, seg_ck: Path) -> dict:
     if not ok_rows or stats["card"] + stats["negative"] != 256 \
             or not pred_agree >= ENTRY_AGREEMENT:
         bad.append(f"plots: {out['plots']}")
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    out["half_conv_layout"], faults = tools_conv_layout(torch)
+    bad += faults
+    out["slim_fixture"], slim_launches, faults = tools_slim_fixture(torch, root)
+    bad += faults
+    out["decode_fixtures"], chan_max, faults = tools_decode_fixtures(torch, root)
+    bad += faults
+    out["dead_channel"], faults = tools_dead_channel(torch, root, chan_max)
+    bad += faults
+    out["fixture_tools_seconds"] = time.perf_counter() - t_new
     emit({"phase": "tools", **out, "seconds": time.perf_counter() - t_start,
           "card": card["name"], "nvidia_smi": card["nvidia_smi"]})
     if bad:
         fail(f"tools: {bad}")
-    return launches
+    return {"profile_blocks": launches, "slim_fixture_served": slim_launches["served"],
+            "slim_fixture_profile": slim_launches["profile"]}
 
 
 def _free_port() -> int:
@@ -4899,7 +5153,9 @@ def main() -> int:
     # each main path that runs it, every path zeroed before and read after
     # its own run: the predictors' b128 runs and the server's 16 requests for
     # kernels 1, 2 and 4, the trained CLI checkpoint's b32 predict and the pruned,
-    # slimmed one's for 1-2, the trained pose checkpoint's b24 predict for 4,
+    # slimmed one's for 1-2, the slim fixture's 512x512 b128 predict for 1-2
+    # and its block profile for 1 and 4, the trained pose checkpoint's b24
+    # predict for 4,
     # the per-block predictors' (fused_blocks=all at 512x512 b128 and
     # 320x240 b32, fused_chain=False) one predict each for 3, the option
     # predictors for 5-6, the stencil tool's run for 8 (upsample2x_add
@@ -4910,7 +5166,9 @@ def main() -> int:
                       "server": sum(server_launches[n] for n in BLOCK_KERNELS),
                       "train_cli_served": sum(cli_launches[n] for n in BLOCK_KERNELS),
                       "compress_export_served": sum(ce_launches[n] for n in BLOCK_KERNELS),
-                      "distributed_served": sum(dist_launches[n] for n in BLOCK_KERNELS)}
+                      "distributed_served": sum(dist_launches[n] for n in BLOCK_KERNELS),
+                      "slim_fixture_served": sum(tools_launches["slim_fixture_served"][n]
+                                                 for n in BLOCK_KERNELS)}
     meta = {
         "fused_mask_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:190",
                               {"seg_predict_b128": launches["fused_mask_decode"],
@@ -4918,7 +5176,12 @@ def main() -> int:
                                "train_cli_served": cli_launches["fused_mask_decode"],
                                "compress_export_served": ce_launches["fused_mask_decode"],
                                "distributed_served": dist_launches["fused_mask_decode"],
-                               "profile_blocks": tools_launches["fused_mask_decode"]}),
+                               "profile_blocks": tools_launches["profile_blocks"][
+                                   "fused_mask_decode"],
+                               "slim_fixture_served": tools_launches["slim_fixture_served"][
+                                   "fused_mask_decode"],
+                               "slim_fixture_profile": tools_launches["slim_fixture_profile"][
+                                   "fused_mask_decode"]}),
         "fused_inverted_residual": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:515",
                                     block_launches),
         "fused_tail_chain": (f"{src}/fused_block.cu", f"{ref}/fused_block.py:393",
@@ -4927,7 +5190,10 @@ def main() -> int:
                             {"pose_predict_b128": pose_launches["fused_normalize"],
                              "server": server_launches["fused_normalize"],
                              "pose_train_served": pose_train_launches["fused_normalize"],
-                             "profile_blocks": tools_launches["fused_normalize"]}),
+                             "profile_blocks": tools_launches["profile_blocks"][
+                                 "fused_normalize"],
+                             "slim_fixture_profile": tools_launches["slim_fixture_profile"][
+                                 "fused_normalize"]}),
         "fused_stem": (f"{src}/stem.cu", f"{ref}/stem.py:186",
                        {"seg_options": option_launches["fused_stem"]}),
         "fused_head_decode": (f"{src}/decoder.cu", f"{ref}/decoder.py:122",

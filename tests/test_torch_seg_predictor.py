@@ -204,7 +204,8 @@ CLIS = ("train_seg_torch", "evaluate_seg_torch", "prune_seg_torch", "export_seg_
         "evaluate_pose_torch", "export_pose_torch", "generate_dataset_torch",
         "visualize_augmentations_torch", "generate_examples_torch", "graft_entry_torch")
 TOOLS = ("stencil_floor_torch", "fp32_conv_accuracy_torch", "distributed_step_torch",
-         "profile_blocks_torch", "profile_pose_step_torch")
+         "profile_blocks_torch", "profile_pose_step_torch", "half_conv_layout_torch",
+         "make_slim_fixture_torch", "make_decode_fixtures_torch", "analyze_dead_channel_torch")
 
 
 def test_port_sources_import_no_jax():
@@ -244,7 +245,8 @@ def test_port_sources_import_no_jax():
 def test_port_imports_with_jax_blocked():
     """Every port module, chip_smoke.py, the card's tools
     (tools/stencil_floor_torch.py, tools/fp32_conv_accuracy_torch.py,
-    tools/distributed_step_torch.py, tools/profile_blocks_torch.py), the
+    tools/distributed_step_torch.py, tools/profile_blocks_torch.py, the
+    layout map and the fixture and analysis tools), the
     port's CLIs and its graft entry (graft_entry_torch.py) import in a
     process where importing jax, flax, orbax, optax or the JAX package
     fails."""

@@ -3,11 +3,14 @@
 ``tools/profile_blocks.py``), on the CUDA card.
 
     python tools/profile_blocks_torch.py --size 512 --batch 128 --iters 30
+    python tools/profile_blocks_torch.py --checkpoint runs/slim_fixture_torch/checkpoints/slim_model --slim
     python tools/profile_blocks_torch.py --device cpu --size 64 --batch 2 --iters 2
 
 The graph is the JAX tool's: the folded bf16 model (seeded Flax-like
-weights, ``utils/params.py::init_flax_like(0)``; BatchNorm folded into the
-convs), blocks unfused, cut at ``norm, stem, b1, b3, b5, b6, b11, b14,
+weights, ``utils/params.py::init_flax_like(0)``, or a port checkpoint's
+with ``--checkpoint DIR/NAME``, its dead expansion channels removed first
+with ``--slim``, as ``bench.py --slim`` serves one; BatchNorm folded into
+the convs), blocks unfused, cut at ``norm, stem, b1, b3, b5, b6, b11, b14,
 head_conv, head, decode`` (any of ``stem``, ``b0``-``b14``,
 ``head_conv``, ``head``, ``decode`` may be named). ``norm`` runs the
 port's ``fused_normalize`` kernel (uint8 -> normalized bf16) and
@@ -47,13 +50,23 @@ DEFAULT_CUTS = "norm,stem,b1,b3,b5,b6,b11,b14,head_conv,head,decode"
 SLEEP_CYCLES = 2_000_000  # ~1 ms of the card's clock before each pass's first event
 
 
-def build(size: int, device):
-    """The folded bf16 seg model on ``device`` (eval mode)."""
+def build(size: int, device, checkpoint=None, slim: bool = False):
+    """The folded bf16 seg model on ``device`` (eval mode): the seeded
+    weights, or checkpoint ``checkpoint`` (DIR/NAME), slimmed with
+    ``slim``."""
+    from mtg_card_image_segmentation_tpu_torch.compression.slim import slim_seg_state
     from mtg_card_image_segmentation_tpu_torch.serving.predictor import SegPredictor
+    from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
     from mtg_card_image_segmentation_tpu_torch.utils.params import init_flax_like
 
-    return SegPredictor(*init_flax_like(0), size, size, use_kernels=False,
-                        device=device).model
+    if checkpoint is None:
+        params, stats = init_flax_like(0)
+    else:
+        ckpt_dir, name = os.path.split(os.path.normpath(checkpoint))
+        params, stats, _ = load_params(ckpt_dir or ".", name)
+    if slim:
+        params, stats, _ = slim_seg_state(params, stats)
+    return SegPredictor(params, stats, size, size, use_kernels=False, device=device).model
 
 
 def stages(model, cuts, size: int):
@@ -102,7 +115,8 @@ def stages(model, cuts, size: int):
 
 
 def run(size: int = 512, batch: int = 128, iters: int = 30, warmup: int = 3,
-        cuts: str = DEFAULT_CUTS, device: str = "cuda") -> dict:
+        cuts: str = DEFAULT_CUTS, device: str = "cuda", checkpoint=None,
+        slim: bool = False) -> dict:
     """Time every stage; returns the record the tool prints."""
     import numpy as np
     import torch
@@ -115,7 +129,7 @@ def run(size: int = 512, batch: int = 128, iters: int = 30, warmup: int = 3,
 
     dev = resolve_device(device)
     cut_list = [c.strip() for c in cuts.split(",") if c.strip()]
-    model = build(size, dev)
+    model = build(size, dev, checkpoint, slim)
     plan = stages(model, cut_list, size)
     rng = np.random.default_rng(0)
     u8 = torch.from_numpy(rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)).to(dev)
@@ -163,6 +177,7 @@ def run(size: int = 512, batch: int = 128, iters: int = 30, warmup: int = 3,
     total = cum
     return {"tool": "profile_blocks", "method": "cuda_events_per_stage" if cuda
             else "host_clock_per_stage", "size": size, "batch": batch, "iters": iters,
+            "checkpoint": checkpoint, "slim": slim,
             "stages": rows, "total_ms": total, "img_per_s": batch * 1e3 / total,
             "out_shape": list(out.shape), "launches": launches,
             "device": torch.cuda.get_device_name(dev) if cuda else "host CPU",
@@ -178,8 +193,13 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--cuts", type=str, default=DEFAULT_CUTS)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--checkpoint", default=None, help="a port checkpoint DIR/NAME")
+    ap.add_argument("--slim", action="store_true",
+                    help="remove the dead expansion channels first (expansion-pruned "
+                         "checkpoints)")
     args = ap.parse_args(argv)
-    rec = run(args.size, args.batch, args.iters, args.warmup, args.cuts, args.device)
+    rec = run(args.size, args.batch, args.iters, args.warmup, args.cuts, args.device,
+              args.checkpoint, args.slim)
     for r in rec["stages"]:
         print(f"{r['cut']:12s} cum {r['cum_ms']:8.3f} ms   delta {r['delta_ms']:+8.3f} ms")
     print(f"TOTAL {rec['total_ms']:.3f} ms -> {rec['img_per_s']:.0f} img/s")
