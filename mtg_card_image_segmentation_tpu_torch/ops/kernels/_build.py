@@ -9,6 +9,8 @@ rebuilds only what changed. A missing ``nvcc`` or a failed build raises.
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one to its
 count where it launches its kernel and nowhere else, so a caller can zero
 the counts, run a path, and see which kernels the path went through.
+``launch_total`` is the running total of all launches, which a reset does
+not zero: a span (``utils/profiling.py``) reads it at entry and exit.
 
 The build, the binding of a function's argument types and the counts are
 guarded by locks: a threaded server may send two first requests at once.
@@ -37,6 +39,7 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES: Dict[str, int] = {}
+_launch_total = 0
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -44,8 +47,14 @@ _COUNT_LOCK = threading.Lock()
 
 
 def count(name: str) -> None:
+    global _launch_total
     with _COUNT_LOCK:
         LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+        _launch_total += 1
+
+
+def launch_total() -> int:
+    return _launch_total
 
 
 def reset_launches() -> None:

@@ -25,6 +25,7 @@ import torch
 
 from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
 from mtg_card_image_segmentation_tpu_torch.ops.resize import _interp_taps
+from mtg_card_image_segmentation_tpu_torch.utils.profiling import Span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 10 + [_I] * 9 + [_P]
@@ -34,6 +35,8 @@ HEAD_THREADS = 128  # threads of a head-decode CTA (csrc/decoder.cu)
 
 _TAPS: Dict[Tuple[int, int, str], Tuple[torch.Tensor, ...]] = {}
 _CACHE_LOCK = threading.Lock()  # the per-shape tables fill once, from any thread
+_MASK_DECODE = Span("kernel.fused_mask_decode", "kernels")
+_HEAD_DECODE = Span("kernel.fused_head_decode", "kernels")
 
 
 def interp_taps(in_size: int, out_size: int, device: torch.device):
@@ -93,24 +96,25 @@ def fused_mask_decode(scores: torch.Tensor, out_h: int, out_w: int) -> torch.Ten
     CUDA kernel for a CUDA tensor; a CPU tensor takes the plain version."""
     if scores.device.type == "cpu":
         return fused_mask_decode_plain(scores, out_h, out_w)
-    if scores.device.type != "cuda":
-        raise ValueError(f"unsupported device {scores.device}")
-    if scores.dim() != 3 or scores.dtype != torch.float32:
-        raise ValueError(f"want (B, h, w) float32, got {tuple(scores.shape)} {scores.dtype}")
-    scores = scores.contiguous()
-    b, h, w = scores.shape
-    plan = mask_decode_plan(b, h, w, out_h, out_w, _build.sm_count(scores.device))
-    taps_h = interp_taps(h, out_h, scores.device)
-    taps_w = interp_taps(w, out_w, scores.device)
-    out = torch.empty((b, out_h, out_w), dtype=torch.uint8, device=scores.device)
-    fn = _build.bind("decoder", "mtg_fused_mask_decode", _ARGS)
-    err = fn(scores.data_ptr(), *(t.data_ptr() for t in taps_h),
-             *(t.data_ptr() for t in taps_w), out.data_ptr(),
-             b, h, w, out_h, out_w, plan["band_rows"], plan["src_rows"], plan["gx"],
-             plan["gy"], _build.stream_ptr(scores))
-    _build.check(err, "fused_mask_decode")
-    _build.count("fused_mask_decode")
-    return out
+    with _MASK_DECODE:
+        if scores.device.type != "cuda":
+            raise ValueError(f"unsupported device {scores.device}")
+        if scores.dim() != 3 or scores.dtype != torch.float32:
+            raise ValueError(f"want (B, h, w) float32, got {tuple(scores.shape)} {scores.dtype}")
+        scores = scores.contiguous()
+        b, h, w = scores.shape
+        plan = mask_decode_plan(b, h, w, out_h, out_w, _build.sm_count(scores.device))
+        taps_h = interp_taps(h, out_h, scores.device)
+        taps_w = interp_taps(w, out_w, scores.device)
+        out = torch.empty((b, out_h, out_w), dtype=torch.uint8, device=scores.device)
+        fn = _build.bind("decoder", "mtg_fused_mask_decode", _ARGS)
+        err = fn(scores.data_ptr(), *(t.data_ptr() for t in taps_h),
+                 *(t.data_ptr() for t in taps_w), out.data_ptr(),
+                 b, h, w, out_h, out_w, plan["band_rows"], plan["src_rows"], plan["gx"],
+                 plan["gy"], _build.stream_ptr(scores))
+        _build.check(err, "fused_mask_decode")
+        _build.count("fused_mask_decode")
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -257,35 +261,36 @@ def fused_head_decode(x: torch.Tensor, gw: torch.Tensor, low: torch.Tensor,
     plain version."""
     if x.device.type == "cpu":
         return fused_head_decode_plain(x, gw, low, w_lo, bias, out_h, out_w)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _check_head(x, gw, low, w_lo)
-    if x.dtype != torch.bfloat16 or low.dtype != torch.bfloat16:
-        raise ValueError(f"want bfloat16 x and low, got {x.dtype} and {low.dtype}")
-    if gw.dtype != torch.float32 or w_lo.dtype != torch.float32:
-        raise ValueError(f"want float32 gw and w_lo, got {gw.dtype} and {w_lo.dtype}")
-    b, h16, w16, c = x.shape
-    _, h8, w8, cl = low.shape
-    if c % 8 or cl % 8 or not (8 <= c <= 256 and 8 <= cl <= 64):
-        raise ValueError(f"want channel counts that are multiples of 8, C up to 256 and Cl up "
-                         f"to 64, got {c} and {cl}")
-    if not (x.is_contiguous() and low.is_contiguous()):
-        raise ValueError("want contiguous NHWC tensors")
-    dev = x.device
-    gw, w_lo = gw.contiguous(), w_lo.contiguous()
-    bias = torch.as_tensor(bias, dtype=torch.float32, device=dev).reshape(1)
-    plan, bands, _, tap_ptrs = _head_launch(
-        (b, h16, w16, c, h8, w8, cl, out_h, out_w, _build.sm_count(dev)), dev)
-    out = torch.empty((b, out_h, out_w), dtype=torch.uint8, device=dev)
-    fn = _build.bind("decoder", "mtg_fused_head_decode", _HEAD_ARGS)
-    err = fn(x.data_ptr(), gw.data_ptr(), low.data_ptr(), w_lo.data_ptr(),
-             bias.data_ptr(), ctypes.cast(tap_ptrs, ctypes.c_void_p), bands.data_ptr(),
-             out.data_ptr(), b, h16, w16, c, h8, w8, cl, out_h, out_w, plan["n_bands"],
-             plan["band_rows"], plan["max_hs_rows"], plan["max_s8_rows"],
-             plan["gx"], plan["gy"], plan["smem_bytes"], _build.stream_ptr(x))
-    _build.check(err, "fused_head_decode")
-    _build.count("fused_head_decode")
-    return out
+    with _HEAD_DECODE:
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        _check_head(x, gw, low, w_lo)
+        if x.dtype != torch.bfloat16 or low.dtype != torch.bfloat16:
+            raise ValueError(f"want bfloat16 x and low, got {x.dtype} and {low.dtype}")
+        if gw.dtype != torch.float32 or w_lo.dtype != torch.float32:
+            raise ValueError(f"want float32 gw and w_lo, got {gw.dtype} and {w_lo.dtype}")
+        b, h16, w16, c = x.shape
+        _, h8, w8, cl = low.shape
+        if c % 8 or cl % 8 or not (8 <= c <= 256 and 8 <= cl <= 64):
+            raise ValueError(f"want channel counts that are multiples of 8, C up to 256 and Cl up "
+                             f"to 64, got {c} and {cl}")
+        if not (x.is_contiguous() and low.is_contiguous()):
+            raise ValueError("want contiguous NHWC tensors")
+        dev = x.device
+        gw, w_lo = gw.contiguous(), w_lo.contiguous()
+        bias = torch.as_tensor(bias, dtype=torch.float32, device=dev).reshape(1)
+        plan, bands, _, tap_ptrs = _head_launch(
+            (b, h16, w16, c, h8, w8, cl, out_h, out_w, _build.sm_count(dev)), dev)
+        out = torch.empty((b, out_h, out_w), dtype=torch.uint8, device=dev)
+        fn = _build.bind("decoder", "mtg_fused_head_decode", _HEAD_ARGS)
+        err = fn(x.data_ptr(), gw.data_ptr(), low.data_ptr(), w_lo.data_ptr(),
+                 bias.data_ptr(), ctypes.cast(tap_ptrs, ctypes.c_void_p), bands.data_ptr(),
+                 out.data_ptr(), b, h16, w16, c, h8, w8, cl, out_h, out_w, plan["n_bands"],
+                 plan["band_rows"], plan["max_hs_rows"], plan["max_s8_rows"],
+                 plan["gx"], plan["gy"], plan["smem_bytes"], _build.stream_ptr(x))
+        _build.check(err, "fused_head_decode")
+        _build.count("fused_head_decode")
+        return out
 
 
 # --------------------------------------------------------------------------

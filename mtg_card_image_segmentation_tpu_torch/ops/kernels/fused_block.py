@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+from mtg_card_image_segmentation_tpu_torch.utils.profiling import Span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEMM_ARGS = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P] + [_I] * 9 + [_P]
@@ -56,6 +57,8 @@ BF16 = torch.bfloat16
 GEMM_BM, GEMM_BK = 128, 64
 GEMM_BN = (80, 160, 240)  # output-tile widths, multiples of the wgmma N of 80
 SMEM_LIMIT = 227 * 1024  # shared memory one CTA may use
+_BLOCK = Span("kernel.fused_inverted_residual", "kernels")
+_CHAIN = Span("kernel.fused_tail_chain", "kernels")
 
 # launch-counter names of the four kernels one block launches
 BLOCK_KERNELS = ("expand_gemm", "depthwise", "se_gate", "project_gemm")
@@ -463,10 +466,11 @@ def fused_inverted_residual(x: torch.Tensor, params, kernel_size: int = 3,
     if x.device.type == "cpu":
         return inverted_residual_plain(x, bw, stride, act, use_residual,
                                        dilation, x.dtype)
-    if x.device.type != "cuda" or x.dtype != BF16:
-        raise ValueError(f"kernel path wants a bf16 CUDA tensor, got {x.dtype} on {x.device}")
-    return inverted_residual_kernels(x, bw, stride, act, use_residual,
-                                     dilation, BF16)
+    with _BLOCK:
+        if x.device.type != "cuda" or x.dtype != BF16:
+            raise ValueError(f"kernel path wants a bf16 CUDA tensor, got {x.dtype} on {x.device}")
+        return inverted_residual_kernels(x, bw, stride, act, use_residual,
+                                         dilation, BF16)
 
 
 def fused_tail_chain(x: torch.Tensor, params_list: Sequence, kernel_size: int = 5,
@@ -478,14 +482,15 @@ def fused_tail_chain(x: torch.Tensor, params_list: Sequence, kernel_size: int = 
     blocks = [_weights(p, kernel_size, x.device) for p in params_list]
     if x.device.type == "cpu":
         return tail_chain_plain(x, blocks, act, dilation)
-    if x.device.type != "cuda" or x.dtype != BF16:
-        raise ValueError(f"kernel path wants a bf16 CUDA tensor, got {x.dtype} on {x.device}")
-    val, val_bf16 = x, x
-    for i, bw in enumerate(blocks):
-        last = i == len(blocks) - 1
-        res = inverted_residual_kernels(
-            val, bw, 1, act, bw.cin == bw.cout, dilation,
-            BF16 if last else torch.float32, x_bf16=val_bf16, bf16_copy=not last,
-        )
-        val, val_bf16 = (res, res) if last else res
-    return val
+    with _CHAIN:
+        if x.device.type != "cuda" or x.dtype != BF16:
+            raise ValueError(f"kernel path wants a bf16 CUDA tensor, got {x.dtype} on {x.device}")
+        val, val_bf16 = x, x
+        for i, bw in enumerate(blocks):
+            last = i == len(blocks) - 1
+            res = inverted_residual_kernels(
+                val, bw, 1, act, bw.cin == bw.cout, dilation,
+                BF16 if last else torch.float32, x_bf16=val_bf16, bf16_copy=not last,
+            )
+            val, val_bf16 = (res, res) if last else res
+        return val

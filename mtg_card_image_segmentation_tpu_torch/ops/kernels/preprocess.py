@@ -21,6 +21,7 @@ from mtg_card_image_segmentation_tpu_torch.data.preprocess import (
     IMAGENET_STD,
 )
 from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+from mtg_card_image_segmentation_tpu_torch.utils.profiling import Span
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P, _P, ctypes.c_longlong, _I] + [_F] * 6 + [_P]
@@ -30,6 +31,7 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _STD = np.asarray(IMAGENET_STD, np.float32)
 SCALE = (np.float32(1.0) / (np.float32(255.0) * _STD)).astype(np.float32)
 SHIFT = (-np.asarray(IMAGENET_MEAN, np.float32) / _STD).astype(np.float32)
+_NORMALIZE = Span("kernel.fused_normalize", "kernels")
 
 
 def _check(images_u8: torch.Tensor, out_dtype: torch.dtype) -> None:
@@ -57,16 +59,17 @@ def fused_normalize(images_u8: torch.Tensor,
     version."""
     if images_u8.device.type == "cpu":
         return fused_normalize_plain(images_u8, out_dtype)
-    if images_u8.device.type != "cuda":
-        raise ValueError(f"unsupported device {images_u8.device}")
-    _check(images_u8, out_dtype)
-    if not images_u8.is_contiguous():
-        raise ValueError("want a contiguous NHWC tensor")
-    out = torch.empty(images_u8.shape, dtype=out_dtype, device=images_u8.device)
-    fn = _build.bind("preprocess", "mtg_fused_normalize", _ARGS)
-    err = fn(images_u8.data_ptr(), out.data_ptr(), images_u8.numel(),
-             int(out_dtype == torch.bfloat16), *map(float, SCALE), *map(float, SHIFT),
-             _build.stream_ptr(images_u8))
-    _build.check(err, "fused_normalize")
-    _build.count("fused_normalize")
-    return out
+    with _NORMALIZE:
+        if images_u8.device.type != "cuda":
+            raise ValueError(f"unsupported device {images_u8.device}")
+        _check(images_u8, out_dtype)
+        if not images_u8.is_contiguous():
+            raise ValueError("want a contiguous NHWC tensor")
+        out = torch.empty(images_u8.shape, dtype=out_dtype, device=images_u8.device)
+        fn = _build.bind("preprocess", "mtg_fused_normalize", _ARGS)
+        err = fn(images_u8.data_ptr(), out.data_ptr(), images_u8.numel(),
+                 int(out_dtype == torch.bfloat16), *map(float, SCALE), *map(float, SHIFT),
+                 _build.stream_ptr(images_u8))
+        _build.check(err, "fused_normalize")
+        _build.count("fused_normalize")
+        return out

@@ -31,12 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+from mtg_card_image_segmentation_tpu_torch.utils.profiling import Span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 5 + [_I] * 7 + [_P]
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _ONE_SIXTH = float(np.float32(1.0) / np.float32(6.0))
 COUT = 16
+_STEM = Span("kernel.apply_stem", "kernels")
 
 # the kernel's tiling (csrc/stem.cu): 16 x 64 output pixels per tile, 256
 # threads, a 33-row window, three CTAs per multiprocessor
@@ -156,25 +158,26 @@ def apply_stem(images_u8: torch.Tensor, ops: StemOperands,
     CUDA kernel for a CUDA tensor; a CPU tensor takes the plain version."""
     if images_u8.device.type == "cpu":
         return apply_stem_plain(images_u8, ops, out_dtype)
-    if images_u8.device.type != "cuda":
-        raise ValueError(f"unsupported device {images_u8.device}")
-    _check_images(images_u8, out_dtype)
-    if not images_u8.is_contiguous():
-        raise ValueError("want a contiguous NHWC tensor")
-    if any(t.device != images_u8.device for t in ops):
-        raise ValueError("the stem's operands must lie on the images' device")
-    n, h, wd, _ = images_u8.shape
-    plan = stem_plan(n, h, wd, _build.sm_count(images_u8.device),
-                     out_dtype.itemsize, images_u8.data_ptr() % 16 == 0)
-    out = torch.empty((n, h // 2, wd // 2, COUT), dtype=out_dtype, device=images_u8.device)
-    fn = _build.bind("stem", "mtg_fused_stem", _ARGS)
-    err = fn(images_u8.data_ptr(), ops.pairs.data_ptr(), ops.bias.data_ptr(),
-             ops.center.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), n, h, wd,
-             plan["vec_bytes"], plan["grid"], plan["smem_bytes"],
-             _build.stream_ptr(images_u8))
-    _build.check(err, "fused_stem")
-    _build.count("fused_stem")
-    return out
+    with _STEM:
+        if images_u8.device.type != "cuda":
+            raise ValueError(f"unsupported device {images_u8.device}")
+        _check_images(images_u8, out_dtype)
+        if not images_u8.is_contiguous():
+            raise ValueError("want a contiguous NHWC tensor")
+        if any(t.device != images_u8.device for t in ops):
+            raise ValueError("the stem's operands must lie on the images' device")
+        n, h, wd, _ = images_u8.shape
+        plan = stem_plan(n, h, wd, _build.sm_count(images_u8.device),
+                         out_dtype.itemsize, images_u8.data_ptr() % 16 == 0)
+        out = torch.empty((n, h // 2, wd // 2, COUT), dtype=out_dtype, device=images_u8.device)
+        fn = _build.bind("stem", "mtg_fused_stem", _ARGS)
+        err = fn(images_u8.data_ptr(), ops.pairs.data_ptr(), ops.bias.data_ptr(),
+                 ops.center.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), n, h, wd,
+                 plan["vec_bytes"], plan["grid"], plan["smem_bytes"],
+                 _build.stream_ptr(images_u8))
+        _build.check(err, "fused_stem")
+        _build.count("fused_stem")
+        return out
 
 
 def fused_stem_plain(images_u8: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,

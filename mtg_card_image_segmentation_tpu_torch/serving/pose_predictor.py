@@ -8,7 +8,11 @@ pixel corner coordinates and confidences: uint8 -> normalize kernel
 (``fused_normalize``, straight to the compute dtype) -> HRNet with its
 BatchNorm statistics (not folded) -> heatmap decode with quadratic
 sub-pixel refinement -> input-pixel scaling, with no host round trip
-between the stages. ``refine=False`` is the integer arg-max decode.
+between the stages. ``refine=False`` is the integer arg-max decode. Its
+spans (``utils/profiling.py``): ``pose.heatmaps`` and ``pose.decode`` around
+the two stages, ``pose.upload`` (entry); ``pose.normalize`` (the stock
+normalize), ``pose.backbone``, ``pose.head`` and ``pose.peaks`` (the decode
+and the pixel scaling) (stock).
 
 ``YoloCornerPredictor.predict``: uint8 -> ``/255`` (no ImageNet statistics)
 -> YOLO12n-pose -> anchor decode and joint corner assignment in float32
@@ -38,6 +42,15 @@ from mtg_card_image_segmentation_tpu_torch.utils.params import (
     yolo_from_flax,
 )
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
+from mtg_card_image_segmentation_tpu_torch.utils.profiling import Span
+
+_HEATMAPS = Span("pose.heatmaps", "entry")
+_UPLOAD = Span("pose.upload", "entry")
+_NORMALIZE = Span("pose.normalize", "stock")
+_BACKBONE = Span("pose.backbone", "stock")
+_HEAD = Span("pose.head", "stock")
+_DECODE = Span("pose.decode", "entry")
+_PEAKS = Span("pose.peaks", "stock")
 
 
 class PosePredictor:
@@ -84,23 +97,33 @@ class PosePredictor:
     @torch.inference_mode()
     def heatmaps(self, images_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> (B, hm_h, hm_w, K) float32 heatmaps."""
-        images = _to_images(images_u8, self.device)
-        if self.use_kernels:
-            x = fused_normalize(images.contiguous(), out_dtype=self.dtype)
-        else:
-            x = normalize_only(images.float() / 255.0).to(self.dtype)
-        return self.model(x)
+        with _HEATMAPS:
+            with _UPLOAD:
+                images = _to_images(images_u8, self.device)
+            if self.use_kernels:
+                x = fused_normalize(images.contiguous(), out_dtype=self.dtype)
+            else:
+                with _NORMALIZE:
+                    x = normalize_only(images.float() / 255.0).to(self.dtype)
+            # the model's forward, head(backbone(x)[feature_index]), in two spans
+            with _BACKBONE:
+                feats = self.model.backbone(x)[self.model.feature_index]
+            with _HEAD:
+                return self.model.head(feats)
 
     @torch.inference_mode()
     def decode(self, heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Heatmaps -> ((B, K, 2) float32 xy in input pixels, (B, K) float32
         confidences): the gated sub-pixel decode, or with ``refine=False``
         the integer arg-max."""
-        if self.refine:
-            coords01, conf = hm_lib.decode_argmax_subpixel_gated(heatmaps)
-        else:
-            coords01, conf = hm_lib.decode_argmax(heatmaps)
-        return hm_lib.coords01_to_pixels(coords01, (self.height, self.width)), conf.float()
+        with _DECODE:
+            with _PEAKS:
+                if self.refine:
+                    coords01, conf = hm_lib.decode_argmax_subpixel_gated(heatmaps)
+                else:
+                    coords01, conf = hm_lib.decode_argmax(heatmaps)
+                px = hm_lib.coords01_to_pixels(coords01, (self.height, self.width))
+            return px, conf.float()
 
     def predict(self, images_u8) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) uint8 -> ((B, 4, 2) float32 xy input pixels, (B, 4)

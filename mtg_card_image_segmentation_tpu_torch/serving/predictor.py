@@ -29,6 +29,13 @@ activation, SE and dilation, and the other blocks run as their modules.
 
 ``use_kernels=False`` is the reference-shaped path: unfolded normalize,
 full head, bilinear resize and argmax, all in stock ops.
+
+Spans (``utils/profiling.py``, recorded only under a torch profiler):
+``seg.predict`` around each call, ``seg.upload`` (entry); ``seg.stem`` (the
+centering or the stem kernel's call, and the stem conv), ``seg.block`` for
+each block run as its module, ``seg.head`` (``head_conv``, then the head's
+stock part), ``seg.model`` (the whole reference-shaped path) (stock); the
+kernel wrappers add their own ``kernel.<name>`` spans.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from mtg_card_image_segmentation_tpu_torch.parallel.mesh import shard_batch
 from mtg_card_image_segmentation_tpu_torch.training.checkpoint import load_params
 from mtg_card_image_segmentation_tpu_torch.utils.params import from_flax
 from mtg_card_image_segmentation_tpu_torch.utils.platform import resolve_device
+from mtg_card_image_segmentation_tpu_torch.utils.profiling import Span
 
 # backbone blocks that run through the hand-written kernels: the dilated
 # tail, as one chain
@@ -79,6 +87,13 @@ FUSED_BLOCKS = (12, 13, 14)
 
 _IMAGENET_MEAN = np.array(IMAGENET_MEAN, np.float32)
 _IMAGENET_STD = np.array(IMAGENET_STD, np.float32)
+
+_PREDICT = Span("seg.predict", "entry")
+_UPLOAD = Span("seg.upload", "entry")
+_STEM = Span("seg.stem", "stock")
+_BLOCK = Span("seg.block", "stock")
+_HEAD = Span("seg.head", "stock")
+_MODEL = Span("seg.model", "stock")
 
 _INTERP: Dict[Tuple[int, int, str], torch.Tensor] = {}
 _INTERP_LOCK = threading.Lock()  # a threaded server may fill the cache from two requests
@@ -126,7 +141,8 @@ def _fused_backbone(backbone: MobileNetV3Backbone, x: torch.Tensor,
     already the stem's output (the stem-kernel path). Returns the {"low",
     "high"} taps."""
     if not stem_done:
-        x = backbone.stem(x)
+        with _STEM:
+            x = backbone.stem(x)
     taps = {}
     for i, (k, _exp, _out, _se, act, _stride, _tail) in enumerate(MOBILENET_V3_LARGE_ROWS):
         blk = backbone.block(i)
@@ -139,10 +155,12 @@ def _fused_backbone(backbone: MobileNetV3Backbone, x: torch.Tensor,
             x = fused_inverted_residual(x.contiguous(), blocks[i], k, blk.stride, act,
                                         blk.residual, blk.dilation)
         else:
-            x = blk(x)
+            with _BLOCK:
+                x = blk(x)
         if i == LOW_TAP_ROW:
             taps["low"] = x
-    taps["high"] = backbone.head_conv(x)
+    with _HEAD:
+        taps["high"] = backbone.head_conv(x)
     return taps
 
 
@@ -213,7 +231,8 @@ def _head_decode_mask(head: LRASPPHead, low: torch.Tensor, high: torch.Tensor,
     as one kernel (``fused_head_decode``): the same function as
     ``_head_score_s8`` -> ``fused_mask_decode``, with one pass over the two
     feature maps."""
-    x, gw, w_lo_d, bias_d = _head_gated(head, high, vectors)
+    with _HEAD:
+        x, gw, w_lo_d, bias_d = _head_gated(head, high, vectors)
     return fused_head_decode(x.contiguous(), gw, low.contiguous(), w_lo_d, bias_d,
                              out_h, out_w)
 
@@ -361,28 +380,33 @@ class SegPredictor:
 
     @torch.inference_mode()
     def _predict(self, images_u8) -> torch.Tensor:
-        images = _to_images(images_u8, self.device)
-        if self.use_kernels:
-            # normalization is folded into the stem weights; the centering
-            # constant makes zero padding == ImageNet zero
-            if self.fused_stem:
-                x = apply_stem(images.contiguous(), self._stem, out_dtype=self.dtype)
-            else:
-                x = (images.float() - self._center).to(self.dtype)
-            taps = _fused_backbone(self.model.backbone, x, self._tail,
-                                   stem_done=self.fused_stem, blocks=self._blocks)
-            if self.fused_head:
-                return _head_decode_mask(self.model.head, taps["low"], taps["high"],
-                                         self.height, self.width, self._head_vectors)
-            score = _head_score_s8(self.model.head, taps["low"], taps["high"],
-                                   self._head_vectors)
-            return fused_mask_decode(score, self.height, self.width)
-        x = (images.float() / 255.0).to(self.dtype)
-        mean = torch.tensor(IMAGENET_MEAN, dtype=self.dtype, device=self.device)
-        std = torch.tensor(IMAGENET_STD, dtype=self.dtype, device=self.device)
-        logits = self.model.logits_s8((x - mean) / std)
-        full = bilinear_resize(logits.float(), self.height, self.width)
-        return torch.argmax(full, dim=-1).to(torch.uint8)
+        with _PREDICT:
+            with _UPLOAD:
+                images = _to_images(images_u8, self.device)
+            if self.use_kernels:
+                # normalization is folded into the stem weights; the
+                # centering constant makes zero padding == ImageNet zero
+                with _STEM:
+                    if self.fused_stem:
+                        x = apply_stem(images.contiguous(), self._stem, out_dtype=self.dtype)
+                    else:
+                        x = (images.float() - self._center).to(self.dtype)
+                taps = _fused_backbone(self.model.backbone, x, self._tail,
+                                       stem_done=self.fused_stem, blocks=self._blocks)
+                if self.fused_head:
+                    return _head_decode_mask(self.model.head, taps["low"], taps["high"],
+                                             self.height, self.width, self._head_vectors)
+                with _HEAD:
+                    score = _head_score_s8(self.model.head, taps["low"], taps["high"],
+                                           self._head_vectors)
+                return fused_mask_decode(score, self.height, self.width)
+            with _MODEL:
+                x = (images.float() / 255.0).to(self.dtype)
+                mean = torch.tensor(IMAGENET_MEAN, dtype=self.dtype, device=self.device)
+                std = torch.tensor(IMAGENET_STD, dtype=self.dtype, device=self.device)
+                logits = self.model.logits_s8((x - mean) / std)
+                full = bilinear_resize(logits.float(), self.height, self.width)
+                return torch.argmax(full, dim=-1).to(torch.uint8)
 
     def mask_agreement(self, other: "SegPredictor", images_u8) -> float:
         """Fraction of pixels whose class decision matches ``other``."""

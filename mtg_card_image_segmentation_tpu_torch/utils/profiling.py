@@ -1,25 +1,39 @@
-"""Profiling and tracing utilities (counterpart of the JAX package's
-``utils/profiling.py``, with its names):
+"""Profiling and tracing of the port:
 
 - :func:`trace`: a context manager around ``torch.profiler`` that writes a
   chrome trace (``trace.json``, which ``chrome://tracing`` and Perfetto
-  open) into a directory;
-- :func:`fence`: waits for everything queued on a tensor's device;
-- :class:`StepTimer`: step timing with a fence at each step's end and the
-  first ``warmup`` steps discarded;
-- :func:`device_memory_stats`: each CUDA card's memory in use, its peak and
-  its total, under the JAX keys.
+  open) into a directory (the JAX package's name);
+- :class:`Span`: one span site of the serving path, in one of three layers
+  (``entry``, ``stock``, ``kernels``). It records only while a torch
+  profiler session runs (``torch.autograd.profiler._is_profiler_enabled``,
+  which torch sets and clears on every session's start and stop), so a run
+  with no profiler pays one attribute read at each site;
+- :func:`spans`: the records, kept in memory in a bounded buffer of the
+  newest ``MAX_RECORDS``.
+
+A record holds the span's name and layer, its parent (the span open around
+it on the same thread), its start and end on ``time.perf_counter_ns`` and
+the port's kernel launches inside it (``ops/kernels/_build.py``'s running
+total, read at entry and exit).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from collections import deque
+from typing import List, NamedTuple, Optional
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+from mtg_card_image_segmentation_tpu_torch.ops.kernels import _build
+
+LAYERS = ("entry", "stock", "kernels")
+MAX_RECORDS = 65536
 
 
 @contextlib.contextmanager
@@ -39,86 +53,66 @@ def trace(log_dir: str, python_tracer: bool = False):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def _first_tensor(x) -> Optional[torch.Tensor]:
-    if torch.is_tensor(x):
-        return x
-    if isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        for v in x:
-            t = _first_tensor(v)
-            if t is not None:
-                return t
-    return None
+class SpanRecord(NamedTuple):
+    """One recorded span: ``parent`` is the ``id`` of the span open around
+    it on its thread (``None`` for a root); times are
+    ``time.perf_counter_ns``; ``launches`` counts the port's kernel
+    launches between its start and end."""
+    id: int
+    parent: Optional[int]
+    name: str
+    layer: str
+    start_ns: int
+    end_ns: int
+    launches: int
 
 
-def fence(x) -> None:
-    """Wait until everything queued before ``x`` (a tensor, or the first
-    tensor of a dict, list or tuple) has run on its device: the card's
-    stream is in order, so synchronizing it is enough. Host tensors are
-    ready as soon as they exist."""
-    t = _first_tensor(x)
-    if t is not None and t.is_cuda:
-        torch.cuda.synchronize(t.device)
+_RECORDS: deque = deque(maxlen=MAX_RECORDS)  # SpanRecord fields as plain tuples
+_IDS = itertools.count(1)
+# one entry per recorded span open on any thread (list.append and list.pop
+# are atomic): a span's exit reads only this while it is empty
+_OPEN: list = []
 
 
-class StepTimer:
-    """Accumulates wall-clock per step with fenced boundaries.
-
-    >>> timer = StepTimer(warmup=3)
-    >>> for batch in data:
-    ...     with timer.step():
-    ...         out = train_step(...)
-    ...     timer.mark(out)   # fence + record
-    """
-
-    def __init__(self, warmup: int = 3) -> None:
-        self.warmup = warmup
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-        self._seen = 0
-
-    @contextlib.contextmanager
-    def step(self):
-        self._t0 = time.perf_counter()
-        yield
-
-    def mark(self, out) -> None:
-        fence(out)
-        self.record(time.perf_counter() - self._t0)
-
-    def record(self, seconds: float) -> None:
-        """One step's time; the first ``warmup`` steps are discarded."""
-        self._seen += 1
-        if self._seen > self.warmup:
-            self.times.append(seconds)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "steps": len(arr),
-            "mean_ms": float(arr.mean() * 1e3),
-            "median_ms": float(np.median(arr) * 1e3),
-            "p90_ms": float(np.percentile(arr, 90) * 1e3),
-            "steps_per_sec": float(1.0 / arr.mean()),
-        }
+class _Stack(threading.local):
+    def __init__(self) -> None:
+        self.frames: list = []
 
 
-def device_memory_stats() -> List[Dict]:
-    """Per CUDA card: ``bytes_in_use`` and ``peak_bytes_in_use`` of the
-    caching allocator (``torch.cuda.memory_stats``) and ``bytes_limit``, the
-    card's total memory; an empty list without CUDA."""
-    out = []
-    if not torch.cuda.is_available():
-        return out
-    for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        out.append({
-            "device": f"cuda:{i}",
-            "bytes_in_use": stats.get("allocated_bytes.all.current"),
-            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
-            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
-        })
-    return out
+_STACK = _Stack()
+
+
+class Span:
+    """A span site, built once where the work happens and entered on every
+    call (``with SITE: ...``); entering it allocates nothing while no
+    profiler runs."""
+
+    __slots__ = ("name", "layer")
+
+    def __init__(self, name: str, layer: str) -> None:
+        if layer not in LAYERS:
+            raise ValueError(f"layer must be one of {LAYERS}, got {layer!r}")
+        self.name, self.layer = name, layer
+
+    def __enter__(self) -> None:
+        if _autograd_profiler._is_profiler_enabled:
+            frames = _STACK.frames
+            _OPEN.append(None)
+            frames.append((self, next(_IDS), frames[-1][1] if frames else None,
+                           _build.launch_total(), time.perf_counter_ns()))
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if _OPEN:
+            frames = _STACK.frames
+            if frames and frames[-1][0] is self:
+                end = time.perf_counter_ns()
+                _, sid, parent, launches, start = frames.pop()
+                _RECORDS.append((sid, parent, self.name, self.layer, start, end,
+                                 _build.launch_total() - launches))
+                _OPEN.pop()
+
+
+def spans() -> List[SpanRecord]:
+    """The recorded spans, oldest first (a span is recorded when it ends,
+    so children come before their parents)."""
+    return [SpanRecord._make(r) for r in list(_RECORDS)]
